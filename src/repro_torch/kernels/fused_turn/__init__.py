@@ -1,0 +1,2 @@
+from repro_torch.kernels.fused_turn.ops import (  # noqa: F401
+    BIG, TripPlan, plane_commit, plane_commit_ref, trip_plan, trip_plan_ref)

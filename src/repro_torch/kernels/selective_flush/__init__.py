@@ -1,0 +1,2 @@
+from repro_torch.kernels.selective_flush.ops import (  # noqa: F401
+    drain_writeback, drain_writeback_ref)

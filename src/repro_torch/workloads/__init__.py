@@ -1,0 +1,26 @@
+"""Pluggable asymmetric-sharing workloads (`repro.workloads`).
+
+Each registered module implements
+`build(scenario, n_agents, seed=0, *, proto=None, device=None, **kw)
+-> Bench` and `init_state(wl, seed, device)`.  The port registers
+`kv_directory` so far.
+"""
+from __future__ import annotations
+
+import importlib
+
+_MODULES = {
+    "kv_directory": "repro_torch.workloads.kv_directory",
+}
+
+
+def available():
+    return sorted(_MODULES)
+
+
+def get(name: str):
+    """The registered workload module (lazy import)."""
+    if name not in _MODULES:
+        raise KeyError(f"unknown workload {name!r}; "
+                       f"available: {available()}")
+    return importlib.import_module(_MODULES[name])

@@ -1,0 +1,240 @@
+"""Workload-agnostic asymmetric-sharing harness (`repro.workloads.harness`,
+DESIGN.md §7).
+
+A workload is a `Workload`: a frozen bundle of module-level functions
+plus its static config and protocol op table,
+
+  can_local(wl, s, *ops)        -> [n] bool agents with a commuting turn
+  can_remote(wl, s, *ops)       -> [n] bool agents whose next turn conflicts
+  local_turn(wl, s, mask, *ops) -> s'       one turn per masked agent
+  remote_turn(wl, s, wg, *ops)  -> s'       one serializing turn for wg
+  remote_bound(wl, s, *ops)     -> [n] f32  lower bound on cycles before
+                                            agent i's next remote turn
+  live(wl, s, *ops)             -> bool     loop guard
+
+over a NamedTuple state whose first field is the protocol `Store`.
+
+Engines, each the JAX engine trip for trip: `run_serial` (smallest clock
+acts next, ties to the lowest index), `run_batched` (every local turn
+that provably precedes every remote turn that could observe it) and
+`run_fused` (the batched schedule with the decision made by one
+`trip_plan` call and the serial local fallback folded into the same
+masked local turn, DESIGN.md §12).  Each `lax.while_loop`/`lax.cond`
+becomes a host loop or branch on a scalar read back from the device:
+one synchronisation per decision.
+
+Not ported yet: the remote co-scheduling branch (no ported workload
+declares `remote_turn_b`), the elastic engines and the vmapped `*_many`
+replica engines.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from repro_torch.core import costmodel
+from repro_torch.core import protocol as P
+from repro_torch.kernels import fused_turn
+from repro_torch.obs import trace as T
+
+BIG = 3e38      # float32(3e38): above every real clock
+
+SCENARIO_PROTOCOLS = P.Registry("scenario")
+
+
+def register_scenario(name: str, proto_name: str) -> None:
+    """Map a scenario name onto a registered protocol name."""
+    if proto_name not in P.PROTOCOLS:
+        raise KeyError(f"cannot register scenario {name!r}: unknown "
+                       f"protocol {proto_name!r}; registered protocols: "
+                       f"{sorted(P.PROTOCOLS)}")
+    SCENARIO_PROTOCOLS[name] = proto_name
+
+
+register_scenario("baseline", "global")
+register_scenario("scope_only", "local")  # NOT remote-safe: staleness demo
+register_scenario("steal_only", "global")
+register_scenario("rsp", "rsp")
+register_scenario("srsp", "srsp")
+
+
+def resolve_proto(scenario: str, proto: P.Protocol = None) -> P.Protocol:
+    if proto is not None:
+        return proto
+    return P.get_protocol(SCENARIO_PROTOCOLS[scenario])
+
+
+class Bench(NamedTuple):
+    """Uniform handle a caller drives a workload through."""
+    wl: "Workload"
+    state: Any
+    ops: tuple
+    check: Callable     # (final_state) -> dict(ok, check_fails, ...)
+
+
+def make_bench(cfg, build_workload, init_state, self_check, scenario,
+               seed=0, proto: P.Protocol = None, device=None) -> Bench:
+    wl = build_workload(cfg, resolve_proto(scenario, proto))
+    return Bench(wl, init_state(wl, seed, device), (),
+                 lambda final: self_check(wl, final))
+
+
+@dataclasses.dataclass(frozen=True)
+class Workload:
+    """Declarative workload spec bound to a config and a protocol."""
+    name: str
+    cfg: Any
+    proto: P.Protocol
+    has_remote: bool            # False: every turn commutes
+    can_local: Callable
+    can_remote: Callable
+    local_turn: Callable
+    remote_turn: Callable
+    remote_bound: Callable
+    live: Callable
+
+
+def one_hot(n: int, wg, device) -> torch.Tensor:
+    return torch.arange(n, device=device) == torch.as_tensor(wg,
+                                                             device=device)
+
+
+def charge(st: P.Store, mask, cycles) -> P.Store:
+    """Add per-agent compute cycles outside the protocol ops."""
+    c = st.counters
+    return st._replace(counters=c._replace(
+        cycles=c.cycles + torch.where(mask, float(cycles), 0.0)))
+
+
+def _note_turn(s0, s1):
+    """Per-turn latency histogram hook (identity: traces are disabled)."""
+    return s1._replace(store=T.record_turn(s1.store,
+                                           s0.store.counters.cycles))
+
+
+def _serial_turn(wl: Workload, s, wg, can_l, ops):
+    if bool(can_l[wg]):
+        n = can_l.shape[0]
+        return wl.local_turn(wl, s, one_hot(n, wg, can_l.device), *ops)
+    return wl.remote_turn(wl, s, wg, *ops)
+
+
+def run_serial(wl: Workload, state, *ops):
+    """Event-driven reference scheduler: smallest clock acts next."""
+    s = state
+    while bool(wl.live(wl, s, *ops)):
+        can_l = wl.can_local(wl, s, *ops)
+        can_r = wl.can_remote(wl, s, *ops)
+        clocks = torch.where(can_l | can_r, s.store.counters.cycles, BIG)
+        wg = clocks.argmin().to(torch.int32)
+        s = _note_turn(s, _serial_turn(wl, s, wg, can_l, ops))
+    return s
+
+
+def _batched_trip(wl: Workload, s, can_l, can_r, ops):
+    """One `run_batched` trip: the local batch if nonempty, else one
+    serial turn."""
+    if not wl.has_remote:
+        return wl.local_turn(wl, s, can_l, *ops)
+    clocks_all = s.store.counters.cycles
+    n = clocks_all.shape[0]
+    wgs = torch.arange(n, dtype=torch.int32, device=clocks_all.device)
+    wg_min = torch.where(can_l | can_r, clocks_all, BIG).argmin() \
+        .to(torch.int32)
+    sclk = torch.where(can_r, clocks_all, BIG)
+    ms = sclk.min()
+    js = sclk.argmin().to(torch.int32)
+    fence = torch.where(can_l, clocks_all + wl.remote_bound(wl, s, *ops),
+                        BIG).min()
+    lex = (clocks_all < ms) | ((clocks_all == ms) & (wgs < js))
+    batch = can_l & lex & (clocks_all <= fence)
+    if bool(batch.any()):
+        return wl.local_turn(wl, s, batch, *ops)
+    return _serial_turn(wl, s, wg_min, can_l, ops)
+
+
+def run_batched(wl: Workload, state, *ops):
+    """Vectorized scheduler: every provably-commuting local turn per trip
+    (DESIGN.md §4); otherwise one serial turn."""
+    s = state
+    while bool(wl.live(wl, s, *ops)):
+        can_l = wl.can_local(wl, s, *ops)
+        can_r = wl.can_remote(wl, s, *ops) if wl.has_remote else None
+        s = _note_turn(s, _batched_trip(wl, s, can_l, can_r, ops))
+    return s
+
+
+def _fused_trip(wl: Workload, s, can_l, can_r, ops):
+    """`_batched_trip` with the decision in one `trip_plan` call: lmask is
+    the batch, or the one-hot serial-local fallback; when it is empty the
+    trip is the first-argmin agent's remote turn."""
+    if not wl.has_remote:
+        return _batched_trip(wl, s, can_l, can_r, ops)
+    plan = fused_turn.trip_plan(s.store.counters.cycles, can_l, can_r,
+                                wl.remote_bound(wl, s, *ops), None, None,
+                                remote_cap=False)
+    if bool(plan.lmask.any()):
+        return wl.local_turn(wl, s, plan.lmask, *ops)
+    return wl.remote_turn(wl, s, plan.wg, *ops)
+
+
+def run_fused(wl: Workload, state, *ops):
+    """`run_batched` with the fused trip: the same schedule and final
+    state, one `trip_plan` launch and at most one masked local turn per
+    trip."""
+    s = state
+    while bool(wl.live(wl, s, *ops)):
+        can_l = wl.can_local(wl, s, *ops)
+        can_r = wl.can_remote(wl, s, *ops) if wl.has_remote else None
+        s = _note_turn(s, _fused_trip(wl, s, can_l, can_r, ops))
+    return s
+
+
+ENGINES = P.Registry("engine")
+
+
+def register_engine(name: str, fn: Callable) -> Callable:
+    ENGINES[name] = fn
+    return fn
+
+
+def engines() -> tuple:
+    return tuple(sorted(ENGINES))
+
+
+register_engine("serial", run_serial)
+register_engine("batched", run_batched)
+register_engine("fused", run_fused)
+
+
+def runner(engine: str):
+    """Registered scheduler by name; unknown names raise with the list."""
+    return ENGINES[engine]
+
+
+def drain_all(cfg: P.ProtoConfig, st: P.Store) -> P.Store:
+    """Flush every cache completely (post-run memory audits)."""
+    st, _ = P.b_drain(cfg, st, P.DRAIN_ALL, True)
+    return st
+
+
+def counters_dict(st: P.Store) -> dict:
+    """The standard counter summary every workload reports."""
+    c = st.counters
+    return {
+        "makespan": float(costmodel.makespan(c)),
+        "l2_accesses": float(c.l2_accesses),
+        "wb_blocks": float(c.wb_blocks),
+        "inv_full": float(c.inv_full),
+        "probes": float(c.probes),
+        "promotions": float(c.promotions),
+        "local_syncs": float(c.local_syncs),
+        "remote_syncs": float(c.remote_syncs),
+        "global_syncs": float(c.global_syncs),
+        "steals": float(c.steals),
+        "l1_hits": float(c.l1_hits),
+        "l1_misses": float(c.l1_misses),
+        "recoveries": float(c.recoveries),
+    }

@@ -1,0 +1,94 @@
+"""The port's hand-written CUDA kernels against their plain versions.
+
+These tests need a CUDA device and skip without one; they import no JAX,
+so they also run on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+(`--noconftest` because tests/conftest.py imports JAX).  The cases are
+the lists of `repro_torch.kernels.cases`, which `chip_smoke.py` runs too.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import cases as C  # noqa: E402
+from repro_torch.kernels.fused_turn import ops as FT  # noqa: E402
+from repro_torch.kernels.selective_flush import ops as SF  # noqa: E402
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _ids(cases):
+    return [c[0] for c in cases]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(len(C.DRAIN_CASES)),
+                         ids=_ids(C.DRAIN_CASES))
+def test_drain_writeback_kernel_on_card(cuda, k):
+    args = [C.to_torch(x) for x in C.dw_inputs(k, **C.DRAIN_CASES[k][1])]
+    before = SF.drain_writeback.launches
+    got = SF.drain_writeback(*(a.to(cuda) for a in args))
+    torch.cuda.synchronize()
+    assert SF.drain_writeback.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  SF.drain_writeback_ref(*args).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(len(C.COMMIT_CASES)),
+                         ids=_ids(C.COMMIT_CASES))
+def test_plane_commit_kernel_on_card(cuda, k):
+    args = [C.to_torch(x) for x in C.pc_inputs(k, **C.COMMIT_CASES[k][1])]
+    before = FT.plane_commit.launches
+    got = FT.plane_commit(*(a.to(cuda) for a in args))
+    torch.cuda.synchronize()
+    assert FT.plane_commit.launches == before + 1
+    for g, x in zip(got, FT.plane_commit_ref(*args)):
+        np.testing.assert_array_equal(g.cpu().numpy(), x.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(len(C.PLAN_CASES)),
+                         ids=_ids(C.PLAN_CASES))
+def test_trip_plan_kernel_on_card(cuda, k):
+    _, kw, remote_cap, fenced = C.PLAN_CASES[k]
+    args = [C.to_torch(x) for x in C.plan_inputs(k, **kw)]
+    hor = C.horizon(args[0].numpy(), fenced)
+    before = FT.trip_plan.launches
+    got = FT.trip_plan(*(a.to(cuda) for a in args), hor,
+                       remote_cap=remote_cap)
+    torch.cuda.synchronize()
+    assert FT.trip_plan.launches == before + 1
+    want = FT.trip_plan(*args, None if hor is None else torch.tensor(hor),
+                        remote_cap=remote_cap)
+    for g, x in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), x.numpy())
+
+
+@pytest.mark.cuda
+def test_trip_plan_kernel_refuses_more_than_1024_lanes(cuda):
+    args = [C.to_torch(x).to(cuda) for x in C.plan_inputs(1, 1025)]
+    with pytest.raises(ValueError, match="1..1024"):
+        FT.trip_plan(*args, None, remote_cap=False)
+
+
+def test_dispatch_is_by_device():
+    """CPU tensors take the plain version and launch nothing; a mix of
+    devices is refused."""
+    args = [C.to_torch(x) for x in C.plan_inputs(1, 8)]
+    before = FT.trip_plan.launches
+    FT.trip_plan(*args, None, remote_cap=True)
+    assert FT.trip_plan.launches == before
+    from repro_torch.kernels import common
+    assert common.on_cuda(*args) is False
+    meta = torch.zeros(1, device="meta")
+    with pytest.raises(ValueError, match="span devices"):
+        common.on_cuda(args[0], meta)
