@@ -23,7 +23,27 @@ Phases, each fatal on failure:
      the least time the card could take (bytes over 3.35 TB/s, or
      operations over 67 TOP/s), and the launches of phase 4;
   6. the device's busy time and idle share over one fused n=64 srsp run
-     (torch.profiler).
+     (torch.profiler);
+  7. the serving path of granite-moe-1b-a400m (`repro_torch.serve`):
+     (1) the golden config (full width, 2 layers, float32, numpy
+     weights) teacher-forced on `golden/granite_moe_serve.json`'s tokens,
+     top-5 logits within GOLDEN_TOL of the JAX reference's and greedy
+     tokens equal wherever the margin exceeds 2 * GOLDEN_TOL; (2) the
+     full 24-layer model, weights from a seeded torch.Generator on the
+     card, Engine(max_len=512, slots=4) answering 8 requests (prompts of
+     16-256 tokens, 32 new tokens each): in float32 token for token the
+     serial one-request-at-a-time run, in bfloat16 (the timed run, with
+     the serving kernels' launch counts set to 0 just before it) equal to
+     the serial run wherever the serial top-1/top-2 margin exceeds
+     BF16_MARGIN; (3) prefill ms per request, decode ms per step,
+     tokens/s and the device idle share over one decode step.
+
+Phases 3 and 5 cover the serving kernels too (rmsnorm, flash_attention,
+flash_decode, topk_router): phase 3 holds them to their plain versions
+within the tolerances of `repro_torch.kernels.cases`; phase 5 times them
+at the bfloat16 serving shapes beside their bound (bytes over 3.35 TB/s
+or flops over 989 TFLOP/s bf16 / 67 TFLOP/s float32) and one PyTorch
+call of the same function (scaled_dot_product_attention, rms_norm).
 
 The last three lines of standard output are the kernels JSON, the
 nvidia-smi line, and {"ok": true, "device": {...}}.  Exits nonzero, and
@@ -41,7 +61,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 OPS_PER_S = 67e12               # H100 SXM non-tensor 32-bit rate
+BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core rate
 N_MAIN = 64                     # the paper's 64-CU GPU
+GOLDEN_TOL = 1e-3               # float32 logits, card vs the JAX CPU run
+BF16_MARGIN = 0.125             # 8 bf16 ulps of logits of size 2-4
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW = 4, 512, 32
 CELLS = ([(s, N_MAIN, seed, "fused") for seed in (0, 4)
           for s in ("srsp", "rsp", "baseline")]
          + [("srsp", N_MAIN, 4, "serial"), ("srsp", N_MAIN, 4, "batched"),
@@ -201,9 +225,9 @@ def eager_ms(torch, fn, iters=200) -> float:
     return a.elapsed_time(b) / iters
 
 
-def bound(bytes_moved: float, ops: float) -> tuple:
+def bound(bytes_moved: float, ops: float, ops_per_s=OPS_PER_S) -> tuple:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -258,43 +282,343 @@ def profile_cell(torch, steady_s: float) -> dict:
     """Phase 6: device busy time of one fused n=64 srsp run, from
     torch.profiler's CUDA kernel records, against the unprofiled
     `steady_s` of that cell (phase 4): the device's idle share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch import workloads
     from repro_torch.workloads import harness
     bench = workloads.get("kv_directory").build("srsp", N_MAIN, seed=4,
                                                 device="cuda")
+    busy_s, kernels = device_busy(
+        torch, lambda: harness.run_fused(bench.wl, bench.state))
+    top = sorted(kernels, key=_dev_us, reverse=True)[:8]
+    rec = {"cell": f"kv_directory srsp n={N_MAIN} seed=4 fused",
+           "device_busy_s": busy_s, "steady_s": steady_s,
+           "idle_share": 1.0 - busy_s / steady_s,
+           "kernel_launches": sum(e.count for e in kernels),
+           "top": [{"name": e.key[:60], "count": e.count,
+                    "device_ms": _dev_us(e) / 1e3} for e in top]}
+    log(f"  device busy {busy_s:.4f} s of steady {steady_s:.4f} s: "
+        f"idle share {rec['idle_share']:.4f}; "
+        f"{rec['kernel_launches']} kernel launches")
+    for t in rec["top"]:
+        log(f"    {t['device_ms']:9.3f} ms  x{t['count']:6d}  {t['name']}")
+    return rec
+
+
+def check_serving_kernels(torch, C, ops) -> dict:
+    """Phase 3, the serving kernels: each kernel on the card against its
+    plain version on the same inputs, on the card and on the CPU, by
+    `C.check_float` (within `C.TOL` of the output's type) and
+    `C.check_router` (weights within ROUTER_W_TOL, indices bitwise on
+    every row whose order is decided).  Returns the largest absolute
+    error per kernel."""
+    dev = torch.device("cuda")
+    errs = {}
+    for name in C.FLOAT_CASES:
+        fn, plain = getattr(ops[name], name), getattr(ops[name],
+                                                      name + "_ref")
+        for k, case in enumerate(C.FLOAT_CASES[name]):
+            rel, e = C.check_float(fn, plain, *C.float_args(name, k), dev)
+            errs[name] = max(errs.get(name, 0.0), e)
+            log(f"  {name} {case[0]}: rel err {rel:.3g}")
+    TR = ops["topk_router"]
+    for k, case in enumerate(C.ROUTER_CASES):
+        e, decided, rows = C.check_router(TR.topk_router, TR.topk_router_ref,
+                                          k, dev)
+        errs["topk_router"] = max(errs.get("topk_router", 0.0), e)
+        log(f"  topk_router {case[0]}: weight err {e:.3g}, indices equal "
+            f"on {decided}/{rows} decided rows")
+    return errs
+
+
+def measure_serving(torch, C, ops, errs, prompt_lens) -> list:
+    """Phase 5, the serving kernels at the bfloat16 shapes of phase 7's
+    engine (slots=4, max_len=512, its prompts' lengths): device time
+    of the kernel, of its plain version and of one PyTorch call of the
+    same function, beside the bound.  `launches` is filled by phase 7."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    es = 2
+    out = []
+    RN, FA, FD, TR = (ops[n] for n in ("rmsnorm", "flash_attention",
+                                       "flash_decode", "topk_router"))
+
+    def entry(name, replaces, shape, fn, plain, library, nbytes, flops,
+              rate, note=None):
+        b_ms, b_by = bound(nbytes, flops, rate)
+        rec = {"name": name, "route": "cuda",
+               "source": f"src/repro_torch/csrc/{name}.cu",
+               "replaces": replaces, "launches": None,
+               "max_abs_err": errs[name], "ms": device_ms(torch, fn),
+               "plain_ms": device_ms(torch, plain), "bound_ms": b_ms,
+               "bound_by": b_by,
+               "library_ms": device_ms(torch, library) if library else None,
+               "shape": shape, "eager_ms": eager_ms(torch, fn)}
+        if note:
+            rec.update(note(rec))
+        lib = "none" if rec["library_ms"] is None \
+            else f"{rec['library_ms']:.5f}"
+        log(f"  {name} {shape}: {rec['ms']:.5f} ms/call (plain "
+            f"{rec['plain_ms']:.5f}, library {lib}), eager "
+            f"{rec['eager_ms']:.5f} ms, bound {b_ms:.7f} ms ({b_by})")
+        out.append(rec)
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(*shape, dtype=bf):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    rows, d = SERVE_SLOTS, 1024
+    x, w = randn(rows, 1, d), torch.rand(d, generator=gen, device=dev) + 0.5
+    w_bf = w.to(bf)
+    entry("rmsnorm", "src/repro/kernels/rmsnorm/kernel.py:24",
+          f"x [{rows},1,{d}] bf16 (decode)", lambda: RN.rmsnorm(x, w),
+          lambda: RN.rmsnorm_ref(x, w),
+          lambda: F.rms_norm(x, (d,), w_bf, 1e-6),
+          2 * es * rows * d + 4 * d, 3 * rows * d, OPS_PER_S)
+
+    s = max(prompt_lens)      # the longest prompt's prefill
+    q, k, v = randn(1, 16, s, 64), randn(1, 8, s, 64), randn(1, 8, s, 64)
+    entry("flash_attention",
+          "src/repro/kernels/flash_attention/kernel.py:72",
+          f"q [1,16,{s},64] k/v [1,8,{s},64] bf16 causal (prefill)",
+          lambda: FA.flash_attention(q, k, v),
+          lambda: FA.flash_attention_ref(q, k, v),
+          lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                 enable_gqa=True),
+          es * 64 * (2 * 16 * s + 2 * 8 * s),
+          4 * 64 * 16 * s * (s + 1) / 2, BF16_FLOPS)
+
+    # decode: the first four prompts half-way through their new tokens
+    b, S = SERVE_SLOTS, SERVE_MAX_LEN
+    lens = torch.tensor([n + SERVE_NEW // 2 for n in prompt_lens[:b]],
+                        dtype=torch.int32, device=dev)
+    qd, kc, vc = randn(b, 16, 64), randn(b, 8, S, 64), randn(b, 8, S, 64)
+    mask = (torch.arange(S, device=dev) < lens[:, None])[:, None, None, :]
+    valid = int(lens.sum())
+    entry("flash_decode", "src/repro/kernels/flash_decode/kernel.py:62",
+          f"q [{b},16,64] cache [{b},8,{S},64] bf16 kv_len "
+          f"{lens.tolist()} (decode)",
+          lambda: FD.flash_decode(qd, kc, vc, lens),
+          lambda: FD.flash_decode_ref(qd, kc, vc, lens),
+          lambda: F.scaled_dot_product_attention(
+              qd[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True),
+          2 * es * 64 * 8 * valid + 2 * es * b * 16 * 64 + 4 * b,
+          4 * 16 * 64 * valid, BF16_FLOPS)
+
+    t, e, topk = SERVE_SLOTS, 32, 8
+    logits = torch.randn((t, e), generator=gen, device=dev)
+    entry("topk_router", "src/repro/kernels/topk_router/kernel.py:43",
+          f"logits [{t},{e}] f32 k={topk} (decode)",
+          lambda: TR.topk_router(logits, topk),
+          lambda: TR.topk_router_ref(logits, topk), None,
+          4 * t * e + 8 * t * topk, t * e * (3 + topk), OPS_PER_S,
+          note=lambda rec: {"two_call_ms": device_ms(
+              torch, lambda: torch.softmax(logits, -1).topk(topk)),
+              "library_note": "no one PyTorch call; two_call_ms is "
+                              "softmax + topk (no renormalisation)"})
+    return out
+
+
+def device_busy(torch, fn) -> tuple:
+    """(device busy seconds, CUDA kernel records) of one call of `fn`
+    under torch.profiler, from its CUDA kernel records.  Raises when the
+    profiler recorded no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        harness.run_fused(bench.wl, bench.state)
+        fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-    busy_s = sum(dev_us(e) for e in kernels) / 1e6
-    top = sorted(kernels, key=dev_us, reverse=True)[:8]
-    rec = {"cell": f"kv_directory srsp n={N_MAIN} seed=4 fused",
-           "device_busy_s": busy_s, "steady_s": steady_s,
-           "idle_share": 1.0 - busy_s / steady_s if busy_s else None,
-           "kernel_launches": sum(e.count for e in kernels),
-           "top": [{"name": e.key[:60], "count": e.count,
-                    "device_ms": dev_us(e) / 1e3} for e in top]}
+    busy_s = sum(_dev_us(e) for e in kernels) / 1e6
     if not busy_s:
-        log("  torch.profiler recorded no device time: idle share not "
-            "measured")
-    else:
-        log(f"  device busy {busy_s:.4f} s of steady {steady_s:.4f} s: "
-            f"idle share {rec['idle_share']:.4f}; "
-            f"{rec['kernel_launches']} kernel launches")
-        for t in rec["top"]:
-            log(f"    {t['device_ms']:9.3f} ms  x{t['count']:6d}  "
+        raise AssertionError("torch.profiler recorded no device time: the "
+                             "idle share cannot be measured")
+    return busy_s, kernels
+
+
+def _dev_us(e) -> float:
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def serve_requests(vocab: int) -> list:
+    """Phase 7's 8 requests: prompts of 16-256 tokens (both ends
+    present), 32 new tokens each."""
+    import numpy as np
+
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(2024)
+    lens = rng.integers(16, 257, 8)
+    lens[0], lens[1] = 256, 16
+    return [Request(prompt=rng.integers(0, vocab, (int(n),))
+                    .astype(np.int32), max_new_tokens=SERVE_NEW)
+            for n in lens]
+
+
+def serve_path(torch, counters) -> dict:
+    """Phase 7: the serving path of granite-moe-1b-a400m; `counters` are
+    the serving kernels' wrappers, whose launch counts are set to 0 just
+    before the timed bfloat16 engine run and read just after it."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import convert
+    from repro_torch.configs import granite_moe_1b
+    from repro_torch.models.registry import build
+    from repro_torch.serve import golden as G
+    from repro_torch.serve import reference
+    from repro_torch.serve.engine import Engine, Request, insert
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 is float32
+    torch.backends.cudnn.allow_tf32 = False
+    rec = {}
+
+    # (1) the golden config, teacher-forced on the JAX reference's tokens
+    golden = G.load()
+    cfg = G.config()
+    model = build(cfg)
+    params = convert.lm_params_to_torch(convert.numpy_lm_params(cfg, G.SEED),
+                                        dev, torch.float32)
+    logits = [G.teacher_forced(model, params, r["prompt"], r["tokens"])
+              for r in golden["requests"]]
+    res = G.compare(golden, logits, GOLDEN_TOL)
+    eng = Engine(model, params, max_len=G.MAX_LEN, slots=G.SLOTS).generate(
+        [Request(prompt=np.asarray(r["prompt"], np.int32),
+                 max_new_tokens=G.NEW_TOKENS) for r in golden["requests"]])
+    margins = [r["margins"] for r in golden["requests"]]
+    eng_div = [reference.divergence(e.out.tolist(), r["tokens"], m,
+                                    2 * GOLDEN_TOL)
+               for e, r, m in zip(eng, golden["requests"], margins)]
+    log(f"  (1) golden {cfg.name} {G.REDUCED}: {res['steps']} teacher-forced"
+        f" steps, top-5 max abs err {res['max_abs_err']:.3g} (tol "
+        f"{GOLDEN_TOL}), {res['near_ties']} steps with a top-1/top-2 margin"
+        f" <= {2 * GOLDEN_TOL}, greedy mismatches {res['mismatches']}; "
+        f"engine (slots={G.SLOTS}) divergences {eng_div}")
+    if res["max_abs_err"] > GOLDEN_TOL or res["mismatches"] or any(
+            d is not None and not d[2] for d in eng_div):
+        raise AssertionError(f"the golden serving run disagrees: {res} "
+                             f"{eng_div}")
+    rec["golden"] = dict(res, engine_divergence=eng_div)
+    del params, logits
+
+    # (2) the full model: engine against the serial run, f32 then bf16
+    reqs = serve_requests(granite_moe_1b.CONFIG.vocab)
+    lens = [len(r.prompt) for r in reqs]
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(granite_moe_1b.CONFIG, dtype=dtype)
+        model = build(cfg)
+        t0 = time.perf_counter()
+        params = model.init(0, dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_par = sum(x.numel() for x in _leaves(params))
+        serial = [reference.serial_generate(model, params, r.prompt,
+                                            r.max_new_tokens, SERVE_MAX_LEN)
+                  for r in reqs]
+        engine = Engine(model, params, max_len=SERVE_MAX_LEN,
+                        slots=SERVE_SLOTS)
+        if dtype == "bfloat16":
+            engine.generate([Request(prompt=reqs[1].prompt,
+                                     max_new_tokens=4)])   # warm-up
+            for f in counters:
+                f.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = engine.generate([Request(prompt=r.prompt,
+                                       max_new_tokens=r.max_new_tokens)
+                               for r in reqs])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {f.__name__: f.launches for f in counters}
+        tol = 0.0 if dtype == "float32" else BF16_MARGIN
+        div = [reference.divergence(o.out.tolist(), s[0], s[1], tol)
+               for o, s in zip(out, serial)]
+        below = sum(m <= BF16_MARGIN for _, ms in serial for m in ms)
+        n_tok = sum(len(o.out) for o in out)
+        log(f"  (2) {cfg.name} {cfg.n_layers} layers {dtype}: "
+            f"{n_par / 1e9:.3f} B parameters, init {init_s:.2f} s; "
+            f"engine slots={SERVE_SLOTS} max_len={SERVE_MAX_LEN}, prompts "
+            f"{lens}: {n_tok} tokens in {wall:.3f} s; divergences from "
+            f"the serial run (step, margin, allowed): {div}; serial steps "
+            f"with margin <= {BF16_MARGIN}: {below}")
+        if any(d is not None and (dtype == "float32" or not d[2])
+               for d in div):
+            raise AssertionError(f"{dtype} engine != serial run: {div}")
+        rec[dtype] = {"wall_s": wall, "tokens": n_tok, "divergence": div,
+                      "serial_steps_below_margin": below,
+                      "init_s": init_s, "params": n_par,
+                      "first_tokens": [o.out[:8].tolist() for o in out]}
+        if dtype == "float32":
+            del params, engine, serial, out
+            torch.cuda.empty_cache()
+            continue
+        rec["launches"] = launches
+        rec["tokens_per_s"] = n_tok / wall
+        log(f"    launches in that run: {launches}")
+        if not all(launches.values()):
+            raise AssertionError(f"a serving kernel never launched: "
+                                 f"{launches}")
+
+        # (3) where the time goes, bf16
+        pre = []
+        for r in reqs:
+            tok = torch.as_tensor(r.prompt[None].astype(np.int64),
+                                  device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, cache = model.prefill(params, {"tokens": tok})
+            torch.cuda.synchronize()
+            pre.append((time.perf_counter() - t0) * 1e3)
+        stacked = model.init_cache(SERVE_SLOTS, SERVE_MAX_LEN, dev)
+        for i, r in enumerate(reqs[:SERVE_SLOTS]):
+            _, cache = model.prefill(params, {"tokens": torch.as_tensor(
+                r.prompt[None].astype(np.int64), device=dev)})
+            insert(stacked, model.grow_cache(cache, SERVE_MAX_LEN), i)
+        kv = torch.tensor(lens[:SERVE_SLOTS], dtype=torch.int32, device=dev)
+        tok = torch.zeros((SERVE_SLOTS, 1), dtype=torch.long, device=dev)
+
+        def step():
+            model.decode_step(params, stacked, tok, kv,
+                              moe_groups=SERVE_SLOTS)
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        n_steps = 20
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            step()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        busy_s, kernels = device_busy(torch, step)
+        idle = 1.0 - busy_s * 1e3 / step_ms
+        top = sorted(kernels, key=_dev_us, reverse=True)[:8]
+        rec.update({"prefill_ms": pre, "decode_ms_per_step": step_ms,
+                    "decode_busy_ms": busy_s * 1e3, "decode_idle_share": idle,
+                    "decode_kernel_launches": sum(e.count for e in kernels),
+                    "decode_top": [{"name": e.key[:60], "count": e.count,
+                                    "device_ms": _dev_us(e) / 1e3}
+                                   for e in top]})
+        log(f"  (3) bf16 prefill ms per request (prompt lengths {lens}): "
+            f"{[round(x, 3) for x in pre]}; decode {step_ms:.3f} ms per "
+            f"step ({SERVE_SLOTS} slots); {rec['tokens_per_s']:.1f} "
+            f"tokens/s over the engine run")
+        log(f"    one decode step under torch.profiler: device busy "
+            f"{busy_s * 1e3:.3f} ms of {step_ms:.3f} ms: idle share "
+            f"{idle:.4f}; {rec['decode_kernel_launches']} kernel launches")
+        for t in rec["decode_top"]:
+            log(f"    {t['device_ms']:9.3f} ms  x{t['count']:5d}  "
                 f"{t['name']}")
     return rec
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
 
 
 def main(argv=None) -> int:
@@ -308,10 +632,15 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
+        from repro_torch.configs import granite_moe_1b
         from repro_torch.kernels import cases as C
         from repro_torch.kernels import common
+        from repro_torch.kernels.flash_attention import ops as FA
+        from repro_torch.kernels.flash_decode import ops as FD
         from repro_torch.kernels.fused_turn import ops as FT
+        from repro_torch.kernels.rmsnorm import ops as RN
         from repro_torch.kernels.selective_flush import ops as SF
+        from repro_torch.kernels.topk_router import ops as TR
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
@@ -333,8 +662,11 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 log(f"    {name}: {line.strip()}")
 
+    serve_ops = {"rmsnorm": RN, "flash_attention": FA,
+                 "flash_decode": FD, "topk_router": TR}
     log("[3] kernels against their plain versions on the card")
     errs = check_kernels(torch, C, SF, FT)
+    errs.update(check_serving_kernels(torch, C, serve_ops))
 
     log("[4] main path: kv_directory through run_cell")
     with open(os.path.join(ROOT, "src", "repro_torch", "golden",
@@ -348,14 +680,27 @@ def main(argv=None) -> int:
         raise AssertionError(f"a kernel of the main path never launched: "
                              f"{launches}")
 
-    log("[5] kernel times at the n=64 shapes")
+    log("[5] kernel times at the n=64 shapes and the serving shapes")
     kernels = measure(torch, C, SF, FT, errs, launches)
+    lens = [len(r.prompt) for r in serve_requests(
+        granite_moe_1b.CONFIG.vocab)]
+    kernels += measure_serving(torch, C, serve_ops, errs, lens)
 
     log("[6] where the time goes: one fused n=64 srsp run under "
         "torch.profiler")
     prof = profile_cell(torch, rows[CELLS.index(("srsp", N_MAIN, 4,
                                                  "fused"))]["steady_s"])
-    log(f"    total {time.perf_counter() - t_start:.1f} s")
+
+    log("[7] serving path: granite-moe-1b-a400m through "
+        "repro_torch.serve.engine")
+    counters = [RN.rmsnorm, FA.flash_attention, FD.flash_decode,
+                TR.topk_router]
+    serve = serve_path(torch, counters)
+    for rec in kernels:
+        if rec["launches"] is None:
+            rec["launches"] = serve["launches"][rec["name"]]
+    total_s = time.perf_counter() - t_start
+    log(f"    total {total_s:.1f} s")
 
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -363,6 +708,7 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump({"card": smi, "build_s": build_s, "cells": rows,
                        "kernels": kernels, "profile": prof,
+                       "serve": serve, "total_s": total_s,
                        "ptxas": reports}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

@@ -1,11 +1,15 @@
 """Seeded inputs for checking each kernel against its plain version.
 
-One list of cases per kernel: the main path's shapes at n=64 and n=256
+One list of cases per kernel: the simulator's shapes at n=64 and n=256
 plus the edge cases (duplicate destinations, pads, out-of-range indices
 and offsets, dirty bit 31, a ragged last lane, remote_cap, fences, empty
-masks).  `chip_smoke.py` and `tests/test_torch_cuda.py` run these lists
-on the card; `tests/test_torch_kernels.py` feeds the same generators to
-the JAX package's Pallas kernels.  Generators return numpy arrays, packed
+masks), and the serving path's shapes at granite-moe-1b-a400m's width
+(ragged sequence lengths, kv_len 1 and max_len, planted router ties).
+`chip_smoke.py` and `tests/test_torch_cuda.py` run these lists on the
+card, the serving kernels' through `check_float` and `check_router`;
+`tests/test_torch_kernels.py` and
+`tests/test_torch_model_kernels.py` feed the same generators to the JAX
+package's Pallas kernels and references.  Generators return numpy arrays, packed
 planes as uint32; `to_torch` views those as the port's int32 bit
 patterns.
 """
@@ -112,3 +116,195 @@ PLAN_CASES = (
 def horizon(clocks, fenced):
     """The fenced cases' event horizon: the median clock (None: no fence)."""
     return float(np.sort(clocks)[len(clocks) // 2]) if fenced else None
+
+
+# --------------------------------------------------------------------------
+# the serving path's float kernels (granite-moe-1b-a400m: d=1024, Hq 16,
+# Hkv 8, D 64, E 32, k 8; SMOKE: d=64, Hq 4, Hkv 2, D 16, E 4, k 2).
+# Generators return float32 numpy arrays; `to_dtype` makes the typed
+# torch tensor (numpy has no bfloat16).
+# --------------------------------------------------------------------------
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def to_dtype(x, dtype: str) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(x, np.float32)).to(DTYPES[dtype])
+
+
+def rms_inputs(seed, shape):
+    """rmsnorm (x [..., d], w [d]): activations of a few units' scale and
+    a scale vector around 1."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(shape) * 3.0).astype(np.float32)
+    w = rng.uniform(0.5, 1.5, shape[-1]).astype(np.float32)
+    return x, w
+
+
+def attn_inputs(seed, b, hq, hkv, s, d):
+    """flash_attention (q [B,Hq,S,D], k, v [B,Hkv,S,D])."""
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape).astype(np.float32)
+                 for shape in ((b, hq, s, d), (b, hkv, s, d),
+                               (b, hkv, s, d)))
+
+
+def decode_inputs(seed, b, hq, hkv, s, d):
+    """flash_decode (q [B,Hq,D], k, v [B,Hkv,S,D], kv_len [B] int32): a
+    ragged valid prefix with kv_len 1 in row 0 and S in row 1 when B > 1."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, hq, d)).astype(np.float32)
+    k = rng.standard_normal((b, hkv, s, d)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, s, d)).astype(np.float32)
+    kv_len = rng.integers(1, s + 1, b).astype(np.int32)
+    kv_len[0] = 1
+    if b > 1:
+        kv_len[1] = s
+    return q, k, v, kv_len
+
+
+def router_inputs(seed, t, e):
+    """topk_router logits [T, E] float32 with planted ties: every third
+    row repeats one logit in several experts (exact ties in the softmax,
+    which must go to the lower index) and the last row is constant."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((t, e)).astype(np.float32)
+    for r in range(0, t, 3):
+        cols = rng.choice(e, size=min(e, 4), replace=False)
+        x[r, cols] = x[r, cols[0]]
+    x[t - 1] = 0.5
+    return x
+
+
+def router_margin_rows(probs: np.ndarray, k: int, tol: float) -> np.ndarray:
+    """Rows whose order among the top k+1 is decided: every gap between
+    neighbours in the sorted probabilities is 0 (an exact tie, which
+    goes to the lower index) or above `tol`."""
+    top = -np.sort(-probs, axis=-1)[:, : min(k + 1, probs.shape[-1])]
+    gaps = top[:, :-1] - top[:, 1:]
+    return np.all((gaps == 0) | (gaps > tol), axis=-1)
+
+
+# (name, generator keyword arguments, dtype); the seed is the index
+RMS_CASES = [
+    (f"{shape} {dt}", dict(shape=shape), dt)
+    for shape in ((1, 17, 1024), (1, 256, 1024), (4, 1, 1024), (5, 1, 64))
+    for dt in ("float32", "bfloat16")]
+ATTN_CASES = (
+    [(f"S={s} {dt}", dict(b=1, hq=16, hkv=8, s=s, d=64), dt)
+     for s in (1, 5, 17, 64, 200, 512) for dt in ("float32", "bfloat16")]
+    + [("SMOKE B=2 S=33 float32", dict(b=2, hq=4, hkv=2, s=33, d=16),
+        "float32")])
+DECODE_CASES = (
+    [(f"B=4 S=512 {dt}", dict(b=4, hq=16, hkv=8, s=512, d=64), dt)
+     for dt in ("float32", "bfloat16")]
+    + [("B=5 S=48 SMOKE float32", dict(b=5, hq=4, hkv=2, s=48, d=16),
+        "float32"),
+       ("B=1 S=1 bfloat16", dict(b=1, hq=16, hkv=8, s=1, d=64),
+        "bfloat16")])
+ROUTER_CASES = [
+    ("T=4 E=32 k=8", dict(t=4, e=32), 8),
+    ("T=17 E=32 k=8", dict(t=17, e=32), 8),
+    ("T=256 E=32 k=8", dict(t=256, e=32), 8),
+    ("T=9 E=4 k=2 SMOKE", dict(t=9, e=4), 2),
+    ("T=5 E=32 k=32 every expert", dict(t=5, e=32), 32),
+]
+
+# tolerances of a kernel against its plain version, by the output's type:
+# float32 sums in another order (a few ulps of values of size ~1-10);
+# bfloat16 outputs may round one bf16 ulp apart (2^-8 relative) when the
+# float32 values straddle a rounding boundary
+TOL = {"float32": 2e-5, "bfloat16": 2.0 ** -7}
+ROUTER_W_TOL = 1e-6
+ROUTER_MARGIN = 1e-6
+
+
+def within(got: torch.Tensor, want: torch.Tensor, dtype: str) -> float:
+    """The largest |got - want| / max(1, |want|) (0.0 when equal); the
+    caller compares it with TOL[dtype]."""
+    g, w = got.double().cpu(), want.double().cpu()
+    if g.numel() == 0:
+        return 0.0
+    return float(((g - w).abs() / w.abs().clamp(min=1.0)).max())
+
+
+# --------------------------------------------------------------------------
+# the serving kernels' on-card checks, shared by chip_smoke.py and
+# tests/test_torch_cuda.py
+# --------------------------------------------------------------------------
+
+FLOAT_CASES = {"rmsnorm": RMS_CASES, "flash_attention": ATTN_CASES,
+               "flash_decode": DECODE_CASES}
+
+
+def float_args(kernel: str, k: int) -> tuple:
+    """(CPU input tensors, output dtype name) of case k of a float
+    serving kernel: rmsnorm, flash_attention or flash_decode."""
+    _, kw, dt = FLOAT_CASES[kernel][k]
+    if kernel == "rmsnorm":
+        x, w = rms_inputs(k, **kw)
+        return [to_dtype(x, dt), to_dtype(w, "float32")], dt
+    if kernel == "flash_attention":
+        return [to_dtype(x, dt) for x in attn_inputs(k, **kw)], dt
+    q, kk, v, kv_len = decode_inputs(k, **kw)
+    return ([to_dtype(x, dt) for x in (q, kk, v)]
+            + [torch.from_numpy(kv_len)], dt)
+
+
+def _abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"dtype/shape {got.dtype}{tuple(got.shape)} vs "
+                             f"{want.dtype}{tuple(want.shape)}")
+    if got.numel() == 0:
+        return 0.0
+    return float((got.double().cpu() - want.double().cpu()).abs().max())
+
+
+def check_float(fn, plain, args: list, dtype: str, device) -> tuple:
+    """Kernel wrapper `fn` on `device` (exactly one launch) against its
+    plain version `plain` on the same inputs, on the CPU and on `device`.
+    Raises AssertionError when a type or shape differs or the error
+    exceeds TOL[dtype]; returns (relative error, absolute error)."""
+    before = fn.launches
+    got = fn(*(a.to(device) for a in args))
+    wants = [plain(*args), plain(*(a.to(device) for a in args))]
+    torch.cuda.synchronize(device)
+    if fn.launches != before + 1:
+        raise AssertionError(f"{fn.__name__}: {fn.launches - before} "
+                             f"launches, want 1")
+    err = max(_abs_err(got, w) for w in wants)
+    rel = max(within(got, w, dtype) for w in wants)
+    if rel > TOL[dtype]:
+        raise AssertionError(f"{fn.__name__}: error {rel} > {TOL[dtype]}")
+    return rel, err
+
+
+def check_router(fn, plain, k: int, device) -> tuple:
+    """topk_router case k: the kernel wrapper `fn` on `device` (exactly
+    one launch) against `plain` on the CPU and on `device`: weights
+    within ROUTER_W_TOL, indices bitwise on every row whose order is
+    decided (`router_margin_rows`), which must be at least half the rows.
+    Raises AssertionError otherwise; returns (weight error, decided
+    rows, rows)."""
+    _, kw, topk = ROUTER_CASES[k]
+    x = torch.from_numpy(router_inputs(k, **kw))
+    before = fn.launches
+    w, idx = fn(x.to(device), topk)
+    wants = [plain(x, topk), plain(x.to(device), topk)]
+    torch.cuda.synchronize(device)
+    if fn.launches != before + 1:
+        raise AssertionError(f"{fn.__name__}: {fn.launches - before} "
+                             f"launches, want 1")
+    rows = router_margin_rows(torch.softmax(x, -1).numpy(), topk,
+                              ROUTER_MARGIN)
+    err = max(_abs_err(w, w_ref) for w_ref, _ in wants)
+    for _, idx_ref in wants:
+        _abs_err(idx, idx_ref)
+        if not np.array_equal(idx.cpu().numpy()[rows],
+                              idx_ref.cpu().numpy()[rows]):
+            raise AssertionError(f"{fn.__name__} case {k}: indices differ "
+                                 f"on a decided row")
+    if err > ROUTER_W_TOL or rows.sum() < len(rows) // 2:
+        raise AssertionError(f"{fn.__name__} case {k}: weight error {err}, "
+                             f"{int(rows.sum())}/{len(rows)} decided rows")
+    return err, int(rows.sum()), len(rows)

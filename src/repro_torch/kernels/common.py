@@ -28,7 +28,8 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD = pathlib.Path(__file__).resolve().parents[3] / "build"
-KERNELS = ("drain_writeback", "plane_commit", "trip_plan")
+KERNELS = ("drain_writeback", "plane_commit", "trip_plan", "rmsnorm",
+           "flash_attention", "flash_decode", "topk_router")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -63,6 +64,18 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     if kinds == {"cuda"}:
         return True
     raise ValueError(f"kernel inputs span devices {sorted(kinds)}")
+
+
+# element types the float kernels take, by the code their C entry reads
+FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def float_code(t: torch.Tensor, name: str) -> int:
+    """The C entry's code for `t`'s element type; raises on a type the
+    float kernels do not take."""
+    if t.dtype not in FLOAT_CODES:
+        raise ValueError(f"{name}: want float32 or bfloat16, got {t.dtype}")
+    return FLOAT_CODES[t.dtype]
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple):

@@ -14,8 +14,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import cases as C  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as FA  # noqa: E402
+from repro_torch.kernels.flash_decode import ops as FD  # noqa: E402
 from repro_torch.kernels.fused_turn import ops as FT  # noqa: E402
+from repro_torch.kernels.rmsnorm import ops as RN  # noqa: E402
 from repro_torch.kernels.selective_flush import ops as SF  # noqa: E402
+from repro_torch.kernels.topk_router import ops as TR  # noqa: E402
 
 
 @pytest.fixture
@@ -78,6 +82,51 @@ def test_trip_plan_kernel_refuses_more_than_1024_lanes(cuda):
     args = [C.to_torch(x).to(cuda) for x in C.plan_inputs(1, 1025)]
     with pytest.raises(ValueError, match="1..1024"):
         FT.trip_plan(*args, None, remote_cap=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(len(C.RMS_CASES)), ids=_ids(C.RMS_CASES))
+def test_rmsnorm_kernel_on_card(cuda, k):
+    """Within `C.TOL` of the output's type (cases.py states why)."""
+    C.check_float(RN.rmsnorm, RN.rmsnorm_ref, *C.float_args("rmsnorm", k),
+                  cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(len(C.ATTN_CASES)),
+                         ids=_ids(C.ATTN_CASES))
+def test_flash_attention_kernel_on_card(cuda, k):
+    C.check_float(FA.flash_attention, FA.flash_attention_ref,
+                  *C.float_args("flash_attention", k), cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(len(C.DECODE_CASES)),
+                         ids=_ids(C.DECODE_CASES))
+def test_flash_decode_kernel_on_card(cuda, k):
+    C.check_float(FD.flash_decode, FD.flash_decode_ref,
+                  *C.float_args("flash_decode", k), cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(len(C.ROUTER_CASES)),
+                         ids=_ids(C.ROUTER_CASES))
+def test_topk_router_kernel_on_card(cuda, k):
+    """Weights within ROUTER_W_TOL; indices bitwise on every row whose
+    order is decided (exact ties or gaps above ROUTER_MARGIN)."""
+    C.check_router(TR.topk_router, TR.topk_router_ref, k, cuda)
+
+
+@pytest.mark.cuda
+def test_serving_kernels_refuse_what_they_do_not_take(cuda):
+    with pytest.raises(ValueError, match="E <= 32"):
+        TR.topk_router(torch.zeros((2, 64), device=cuda), 8)
+    q = torch.zeros((1, 2, 4, 32), device=cuda)
+    with pytest.raises(ValueError, match="D in"):
+        FA.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        RN.rmsnorm(torch.zeros((2, 8), dtype=torch.float16, device=cuda),
+                   torch.ones(8, device=cuda))
 
 
 def test_dispatch_is_by_device():

@@ -32,6 +32,7 @@ def test_no_jax_or_repro_imports(path):
 def test_the_walk_sees_the_port():
     names = {p.name for p in FILES}
     assert {"protocol.py", "harness.py", "kv_directory.py",
-            "chip_smoke.py"} <= names
+            "chip_smoke.py", "granite_moe_1b.py", "transformer.py",
+            "moe.py", "attention.py", "engine.py", "golden.py"} <= names
     assert _forbidden("repro.core") and _forbidden("jax.numpy")
     assert not _forbidden("repro_torch.core")
