@@ -36,7 +36,20 @@ Phases, each fatal on failure:
      the serving kernels' launch counts set to 0 just before it) equal to
      the serial run wherever the serial top-1/top-2 margin exceeds
      BF16_MARGIN; (3) prefill ms per request, decode ms per step,
-     tokens/s and the device idle share over one decode step.
+     tokens/s and the device idle share over one decode step;
+  8. the cross-pod delta sync (`repro_torch.distributed.hier_sync`),
+     4 pods stacked on the card, `make_pod_sync` in its three modes
+     (selective float32, selective int8, full) on the delta-sync bench's
+     three banks, the cross-pod example's bank and granite-moe-1b-a400m's
+     embedding at its real size (49155 x 1024), with the flush's launch
+     count set to 0 just before and read just after: each bank held to
+     `golden/hier_sync.json` (lists, counters, int8 digests exact, block
+     sums within 2e-6 per element; the embedding bank has no golden
+     record) and to the float64 mean across pods (float modes within
+     1e-5, int8 within half a quantization step more); then per bank the
+     bytes ratio, the sync's wall ms per mode (median of 5), and the
+     flush kernel's device time at that bank's shape beside its bound,
+     its plain version and `torch.index_select`, bitwise checked.
 
 Phases 3 and 5 cover the serving kernels too (rmsnorm, flash_attention,
 flash_decode, topk_router): phase 3 holds them to their plain versions
@@ -44,6 +57,8 @@ within the tolerances of `repro_torch.kernels.cases`; phase 5 times them
 at the bfloat16 serving shapes beside their bound (bytes over 3.35 TB/s
 or flops over 989 TFLOP/s bf16 / 67 TFLOP/s float32) and one PyTorch
 call of the same function (scaled_dot_product_attention, rms_norm).
+Phase 3 holds selective_flush to its plain version bitwise on
+`cases.FLUSH_CASES`; phase 8 times it.
 
 The last three lines of standard output are the kernels JSON, the
 nvidia-smi line, and {"ok": true, "device": {...}}.  Exits nonzero, and
@@ -146,7 +161,25 @@ def check_kernels(torch, C, SF, FT) -> dict:
         errs["trip_plan"] = max(errs["trip_plan"], e)
     log(f"  trip_plan: {len(C.PLAN_CASES)} cases, max_abs_err="
         f"{errs['trip_plan']}")
+    errs["selective_flush"] = 0.0
+    for k, case in enumerate(C.FLUSH_CASES):
+        bank, idx = C.flush_args(k, dev)
+        got = SF.selective_flush(bank, idx)
+        torch.cuda.synchronize()
+        if not (bits_equal(torch, got, SF.selective_flush_ref(bank, idx))
+                and bits_equal(torch, got, SF.selective_flush_ref(
+                    bank.cpu(), idx.cpu()))):
+            raise AssertionError(f"selective_flush {case[0]} disagrees")
+    log(f"  selective_flush: {len(C.FLUSH_CASES)} cases bitwise equal")
     return errs
+
+
+def bits_equal(torch, a, b) -> bool:
+    """Same dtype, shape and bits (bfloat16/float32 through int views)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return torch.equal(a.cpu().view(view), b.cpu().view(view))
 
 
 def run_main_path(torch, golden, launch_counters) -> list:
@@ -621,6 +654,116 @@ def _leaves(tree):
     return [tree]
 
 
+def delta_sync_path(torch, SF) -> tuple:
+    """Phase 8: the cross-pod delta sync, 4 pods stacked on the card.
+    Returns (records per bank, the selective_flush kernel entry at the
+    granite embedding bank's shape, with the checked run's launches)."""
+    from repro_torch.distributed import delta_sync as DS
+    from repro_torch.distributed import hier_sync as HS
+    dev = torch.device("cuda")
+    golden = {r["bank"]: r for r in DS.load_golden()["banks"]}
+    t0 = time.perf_counter()
+    banks = DS.bench_banks() + [DS.example_bank(),
+                                DS.granite_embedding_bank()]
+    log(f"  banks drawn in {time.perf_counter() - t0:.2f} s (numpy)")
+
+    # the checked run: every bank in every mode, launch count 0 before
+    SF.selective_flush.launches = 0
+    checks = [DS.check_bank(b, golden.get(b.label), dev) for b in banks]
+    launches = SF.selective_flush.launches
+    log(f"    launches of selective_flush in that run: {launches}")
+    if not launches:
+        raise AssertionError("the delta sync never launched selective_flush")
+
+    recs, entry = [], None
+    for b, chk in zip(banks, checks):
+        n_pods, nb, bs = b.banks.shape
+        banks_t, st0 = DS.stacked(b, dev)
+        wall = {}
+        for mode in DS.MODES:
+            fn = DS.sync_fn(b, mode)
+            fn(banks_t, st0)
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                fn(banks_t, st0)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            wall[mode] = sorted(times)[2]
+        # where a selective f32 sync's time goes: device busy vs wall
+        busy_s, kern = device_busy(torch, lambda: DS.sync_fn(
+            b, "selective_f32")(banks_t, st0))
+        top = sorted(kern, key=_dev_us, reverse=True)[:5]
+        prof = {"device_busy_ms": busy_s * 1e3,
+                "idle_share": 1.0 - busy_s * 1e3 / wall["selective_f32"],
+                "kernel_launches": sum(e.count for e in kern),
+                "top": [{"name": e.key[:60], "count": e.count,
+                         "device_ms": _dev_us(e) / 1e3} for e in top]}
+        # the f32 flush's own inputs: the flattened delta and the list
+        idx, _ = HS.dirty_list(HS.dirty_mask(banks_t, st0).any(0),
+                               b.max_dirty)
+        flat = (banks_t - st0.ref).reshape(n_pods * nb, bs)
+        fidx = HS.flat_list(idx, n_pods, nb)
+        clipped = fidx.clamp(0, n_pods * nb - 1).long()
+        got = SF.selective_flush(flat, fidx)
+        want = SF.selective_flush_ref(flat, fidx)
+        if not bits_equal(torch, got, want):
+            raise AssertionError(f"selective_flush disagrees at {b.label}")
+        err = max_abs_err(got, want)
+        del want
+        k, valid = fidx.shape[0], int((fidx >= 0).sum())
+        b_ms, b_by = bound((k + valid) * bs * 4 + 4 * k, 0)
+        rec = {"bank": b.label, "pods": n_pods, "n_blocks": nb,
+               "block": bs, "max_dirty": b.max_dirty, "check": chk,
+               "bytes_ratio": chk["selective_f32"]["bytes_selective"]
+               / chk["selective_f32"]["bytes_full"],
+               "sync_ms": wall, "selective_f32_profile": prof,
+               "flush_rows": k, "flush_valid_rows": valid,
+               "ms": device_ms(torch, lambda: SF.selective_flush(flat,
+                                                                 fidx)),
+               "plain_ms": device_ms(torch, lambda: SF.selective_flush_ref(
+                   flat, fidx)),
+               "library_ms": device_ms(torch, lambda: torch.index_select(
+                   flat, 0, clipped)),
+               "bound_ms": b_ms, "bound_by": b_by}
+        log(f"  {b.label:18s} {n_pods}x{nb}x{bs} max_dirty={b.max_dirty}: "
+            f"listed {chk['listed']}, overflow {chk['overflow']}, bytes "
+            f"ratio {rec['bytes_ratio']:.6f}; mean err f32 "
+            f"{chk['selective_f32']['mean_err']:.3g} int8 "
+            f"{chk['selective_int8']['mean_err']:.3g} full "
+            f"{chk['full']['mean_err']:.3g}; sync ms selective_f32 "
+            f"{wall['selective_f32']:.4f} int8 {wall['selective_int8']:.4f}"
+            f" full {wall['full']:.4f}")
+        log(f"    selective_f32 under torch.profiler: device busy "
+            f"{prof['device_busy_ms']:.4f} ms, idle share "
+            f"{prof['idle_share']:.4f}, {prof['kernel_launches']} kernel "
+            f"launches; top: " + "; ".join(
+                f"{t['name'][:40]} x{t['count']} {t['device_ms']:.4f} ms"
+                for t in prof["top"][:3]))
+        log(f"    flush [{n_pods * nb},{bs}] f32, {k} rows ({valid} valid): "
+            f"{rec['ms']:.5f} ms/call (plain {rec['plain_ms']:.5f}, "
+            f"index_select {rec['library_ms']:.5f}), bound {b_ms:.7f} ms "
+            f"({b_by})")
+        recs.append(rec)
+        if b.label == "granite_embedding":
+            entry = {"name": "selective_flush", "route": "cuda",
+                     "source": "src/repro_torch/csrc/selective_flush.cu",
+                     "replaces": "src/repro/kernels/selective_flush/"
+                                 "kernel.py:38",
+                     "launches": launches, "max_abs_err": err,
+                     "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": rec["library_ms"],
+                     "shape": f"delta [{n_pods * nb},{bs}] f32, {k} rows "
+                              f"({valid} valid)",
+                     "library_note": "torch.index_select on the clipped "
+                                     "list; it leaves pad rows unzeroed"}
+        del banks_t, st0, flat, got
+        torch.cuda.empty_cache()
+    return recs, entry
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -699,6 +842,11 @@ def main(argv=None) -> int:
     for rec in kernels:
         if rec["launches"] is None:
             rec["launches"] = serve["launches"][rec["name"]]
+
+    log("[8] cross-pod delta sync: make_pod_sync, 4 pods stacked on the "
+        "card")
+    sync_recs, flush_entry = delta_sync_path(torch, SF)
+    kernels.append(flush_entry)
     total_s = time.perf_counter() - t_start
     log(f"    total {total_s:.1f} s")
 
@@ -708,7 +856,8 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump({"card": smi, "build_s": build_s, "cells": rows,
                        "kernels": kernels, "profile": prof,
-                       "serve": serve, "total_s": total_s,
+                       "serve": serve, "delta_sync": sync_recs,
+                       "total_s": total_s,
                        "ptxas": reports}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

@@ -1,7 +1,8 @@
 """State carry-over between the JAX package and the port.
 
-`from_numpy(tree, device)` turns a JAX state (a `Store`, `KVState` or any
-of their sub-tuples, with its leaves as numpy arrays) into the port's
+`from_numpy(tree, device)` turns a JAX state (a `Store`, `KVState`, a
+cross-pod `BankSyncState` or `EFState`, or any of their sub-tuples, with
+its leaves as numpy arrays) into the port's
 NamedTuple of the same name, field for field.  `to_numpy(tree)` is the
 inverse: the port's tree with numpy leaves.  The packed metadata planes
 are `uint32` in the JAX package and int32 bit patterns in the port;
@@ -22,13 +23,15 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import costmodel, protocol, sfifo, tables
+from repro_torch.distributed import compress, hier_sync
 from repro_torch.kernels import common
 from repro_torch.obs import trace
 from repro_torch.workloads import kv_directory
 
 TYPES = {t.__name__: t for t in (
     protocol.Store, protocol.Lease, sfifo.SFifo, tables.LRTbl, tables.PATbl,
-    costmodel.Counters, trace.TraceLog, kv_directory.KVState)}
+    costmodel.Counters, trace.TraceLog, kv_directory.KVState,
+    hier_sync.BankSyncState, compress.EFState)}
 PLANES = ("wvalid", "wdirty")   # uint32 in JAX, int32 bit patterns here
 
 

@@ -3,8 +3,10 @@
 One list of cases per kernel: the simulator's shapes at n=64 and n=256
 plus the edge cases (duplicate destinations, pads, out-of-range indices
 and offsets, dirty bit 31, a ragged last lane, remote_cap, fences, empty
-masks), and the serving path's shapes at granite-moe-1b-a400m's width
-(ragged sequence lengths, kv_len 1 and max_len, planted router ties).
+masks), the serving path's shapes at granite-moe-1b-a400m's width
+(ragged sequence lengths, kv_len 1 and max_len, planted router ties),
+and the cross-pod sync's flattened banks for selective_flush (pads,
+indices at or above nb, widths and base pointers off 16 bytes).
 `chip_smoke.py` and `tests/test_torch_cuda.py` run these lists on the
 card, the serving kernels' through `check_float` and `check_router`;
 `tests/test_torch_kernels.py` and
@@ -116,6 +118,58 @@ PLAN_CASES = (
 def horizon(clocks, fenced):
     """The fenced cases' event horizon: the median clock (None: no fence)."""
     return float(np.sort(clocks)[len(clocks) // 2]) if fenced else None
+
+
+# --------------------------------------------------------------------------
+# selective_flush: the cross-pod sync's flattened banks ([pods*nb, bs],
+# pods*k indices, a quarter of them pads) and the edges
+# --------------------------------------------------------------------------
+
+def flush_inputs(seed, nb, bs, k, *, pad=0.25, oor=False):
+    """selective_flush (bank [nb, bs] float32, idx [k] int32): repeated
+    rows, pads (-1) with probability `pad`, and with oor=True some
+    indices at or above nb (clipped to nb-1)."""
+    rng = np.random.default_rng(seed)
+    bank = rng.standard_normal((nb, bs)).astype(np.float32)
+    idx = rng.integers(0, nb, k).astype(np.int32)
+    idx[rng.random(k) < pad] = -1
+    if oor:
+        idx[rng.random(k) < 0.2] = nb + rng.integers(0, 5)
+    return bank, idx
+
+
+# (name, generator keyword arguments, dtype, shift); the seed is the
+# index.  `shift` elements in front of the bank move its base pointer
+# off a 16-byte boundary (the kernel then copies in narrower units).
+FLUSH_CASES = [
+    ("moe_expert_bank 4 pods", dict(nb=1024, bs=2048, k=244), "float32", 0),
+    ("embedding_rows 4 pods", dict(nb=4096, bs=1024, k=652), "float32", 0),
+    ("dense_layer 4 pods", dict(nb=1024, bs=2048, k=1024), "float32", 0),
+    ("example 4 pods", dict(nb=128, bs=4096, k=64), "float32", 0),
+    ("all pads", dict(nb=16, bs=64, k=8, pad=1.0), "float32", 0),
+    ("at or above nb", dict(nb=16, bs=64, k=32, oor=True), "float32", 0),
+    ("bfloat16", dict(nb=64, bs=256, k=40), "bfloat16", 0),
+    ("bfloat16 odd width (2-byte units)", dict(nb=33, bs=37, k=20),
+     "bfloat16", 0),
+    ("float32 width 6 (8-byte units)", dict(nb=20, bs=6, k=9), "float32", 0),
+    ("float32 width 5 (4-byte units)", dict(nb=20, bs=5, k=9), "float32", 0),
+    ("float32 base off by one element (4-byte units)",
+     dict(nb=20, bs=8, k=9, oor=True), "float32", 1),
+    ("bfloat16 base off by one element (2-byte units)",
+     dict(nb=20, bs=16, k=9), "bfloat16", 1),
+]
+
+
+def flush_args(k: int, device) -> tuple:
+    """Case k of FLUSH_CASES as (bank, idx) tensors on `device`, the bank
+    a contiguous view `shift` elements into a buffer."""
+    _, kw, dt, shift = FLUSH_CASES[k]
+    bank, idx = flush_inputs(k, **kw)
+    flat = to_dtype(bank, dt).reshape(-1).to(device)
+    buf = torch.zeros(shift + flat.numel(), dtype=flat.dtype, device=device)
+    buf[shift:] = flat
+    return (buf[shift:].view(bank.shape),
+            torch.from_numpy(idx).to(device))
 
 
 # --------------------------------------------------------------------------

@@ -29,7 +29,8 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD = pathlib.Path(__file__).resolve().parents[3] / "build"
 KERNELS = ("drain_writeback", "plane_commit", "trip_plan", "rmsnorm",
-           "flash_attention", "flash_decode", "topk_router")
+           "flash_attention", "flash_decode", "topk_router",
+           "selective_flush")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -1,12 +1,21 @@
-"""drain_writeback: the protocol engine's drain/writeback scatter-merge.
+"""The selective-flush family: the gather-compact of dirty blocks, its
+scatter inverse, and the protocol engine's drain/writeback merge.
 
-Merges drained L1 blocks into the L2 bank under a packed per-word dirty
-mask (`protocol.b_drain`, `protocol.b_writeback`).  `drain_writeback`
-dispatches by device (`kernels/common.py`): CPU tensors take the plain
-version `drain_writeback_ref`, CUDA tensors launch the hand-written
-kernel `csrc/drain_writeback.cu`, which replaces the Pallas TPU kernel
-`drain_writeback_pallas` (src/repro/kernels/selective_flush/kernel.py:93).
-The source note there gives the kernel's design and its bound.
+* `selective_flush` compacts the bank rows a dirty-block list names into
+  a dense buffer (the cross-pod sync's flush, `distributed.hier_sync`);
+  CUDA tensors launch `csrc/selective_flush.cu`, which replaces the
+  Pallas TPU kernel `selective_flush_pallas`
+  (src/repro/kernels/selective_flush/kernel.py:38).
+* `selective_apply` scatters compacted rows back.  It is plain PyTorch
+  on every device, as the JAX package leaves it to XLA's scatter.
+* `drain_writeback` merges drained L1 blocks into the L2 bank under a
+  packed per-word dirty mask (`protocol.b_drain`, `protocol.b_writeback`);
+  CUDA tensors launch `csrc/drain_writeback.cu`, which replaces
+  `drain_writeback_pallas` (kernel.py:93).
+
+Each kernel wrapper dispatches by device (`kernels/common.py`): CPU
+tensors take the plain version `<name>_ref`.  The source notes give each
+kernel's design and its bound.
 """
 from __future__ import annotations
 
@@ -18,6 +27,72 @@ from repro_torch.core import bitmask
 from repro_torch.kernels import common
 
 I32 = torch.int32
+
+
+def selective_flush_ref(bank: torch.Tensor, indices: torch.Tensor
+                        ) -> torch.Tensor:
+    """Plain version: out[i] = bank[clip(indices[i], 0, nb-1)], and a zero
+    row where indices[i] < 0.
+
+    bank [nb, bs]; indices [k] int32 (-1 pads).  Returns [k, bs] in the
+    bank's dtype."""
+    safe = indices.clamp(0, bank.shape[0] - 1).long()
+    out = bank.index_select(0, safe)
+    return torch.where((indices >= 0)[:, None], out, torch.zeros_like(out))
+
+
+def _flush_launch(bank, indices):
+    nb, bs = bank.shape
+    k = indices.shape[0]
+    common.float_code(bank, "bank")
+    common.require(bank, "bank", bank.dtype, (nb, bs))
+    common.require(indices, "indices", I32, (k,))
+    if nb < 1:
+        raise ValueError("selective_flush: the bank has no rows")
+    out = torch.empty((k, bs), dtype=bank.dtype, device=bank.device)
+    if k and bs:
+        common.launch("selective_flush", [ctypes.c_void_p] * 3
+                      + [ctypes.c_int] * 2 + [ctypes.c_longlong],
+                      bank.device, common.ptr(bank), common.ptr(indices),
+                      common.ptr(out), nb, k, bs * bank.element_size())
+        selective_flush.launches += 1
+    return out
+
+
+def selective_flush(bank: torch.Tensor, indices: torch.Tensor
+                    ) -> torch.Tensor:
+    """Compact the bank rows named by `indices` (-1 padded) into a dense
+    [k, bs] buffer (see `selective_flush_ref`)."""
+    if common.on_cuda(bank, indices):
+        return _flush_launch(bank, indices)
+    return selective_flush_ref(bank, indices)
+
+
+selective_flush.launches = 0
+
+
+def selective_apply(bank: torch.Tensor, updates: torch.Tensor,
+                    indices: torch.Tensor) -> torch.Tensor:
+    """Scatter inverse of `selective_flush`: a fresh bank with
+    bank[indices[i]] = updates[i] for every entry in [0, nb); pads (-1)
+    and indices >= nb write nothing.  Where an index repeats, the last
+    entry wins (a priority owner map, so the result does not depend on
+    the device's scatter order).
+
+    bank [nb, bs]; updates [k, bs]; indices [k] int32."""
+    nb = bank.shape[0]
+    k = indices.shape[0]
+    if k == 0:
+        return bank.clone()
+    g = (indices >= 0) & (indices < nb)
+    dest = torch.where(g, indices, nb).long()
+    prio = torch.arange(1, k + 1, dtype=I32, device=bank.device)
+    # the spare row nb takes the dropped entries' writes and is sliced off
+    owner = torch.zeros(nb + 1, dtype=I32, device=bank.device) \
+        .scatter_reduce(0, dest, prio, "amax")[:nb]
+    vals = updates.to(bank.dtype).index_select(
+        0, (owner - 1).clamp(min=0).long())
+    return torch.where((owner > 0)[:, None], vals, bank)
 
 
 def drain_writeback_ref(l2: torch.Tensor, rows: torch.Tensor,

@@ -13,6 +13,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.distributed import delta_sync as DS  # noqa: E402
 from repro_torch.kernels import cases as C  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as FA  # noqa: E402
 from repro_torch.kernels.flash_decode import ops as FD  # noqa: E402
@@ -82,6 +83,42 @@ def test_trip_plan_kernel_refuses_more_than_1024_lanes(cuda):
     args = [C.to_torch(x).to(cuda) for x in C.plan_inputs(1, 1025)]
     with pytest.raises(ValueError, match="1..1024"):
         FT.trip_plan(*args, None, remote_cap=False)
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    t = t.cpu()
+    return (t.view(torch.int16) if t.element_size() == 2
+            else t.view(torch.int32)).numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(len(C.FLUSH_CASES)),
+                         ids=_ids(C.FLUSH_CASES))
+def test_selective_flush_kernel_on_card(cuda, k):
+    """Bitwise its plain version, on the card and on the CPU: the sync's
+    flattened banks, all pads, indices at or above nb, bfloat16, widths
+    and base pointers off 16 bytes."""
+    bank, idx = C.flush_args(k, cuda)
+    before = SF.selective_flush.launches
+    got = SF.selective_flush(bank, idx)
+    torch.cuda.synchronize()
+    assert SF.selective_flush.launches == before + 1
+    assert got.dtype == bank.dtype and got.shape == (idx.shape[0],
+                                                     bank.shape[1])
+    for want in (SF.selective_flush_ref(bank, idx),
+                 SF.selective_flush_ref(bank.cpu(), idx.cpu())):
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
+def test_stacked_sync_on_card_launches_the_flush(cuda):
+    """The stacked 4-pod sync on the card, held to the golden file; the
+    float32 selective mode launches the kernel once (one launch per sync,
+    not per pod), int8 and full none."""
+    bank = DS.small_bank()
+    before = SF.selective_flush.launches
+    DS.check_bank(bank, DS.load_golden()["banks"][0], cuda)
+    assert SF.selective_flush.launches == before + 1
 
 
 @pytest.mark.cuda
