@@ -36,7 +36,9 @@ Phases, each fatal on failure:
      the serving kernels' launch counts set to 0 just before it) equal to
      the serial run wherever the serial top-1/top-2 margin exceeds
      BF16_MARGIN; (3) prefill ms per request, decode ms per step,
-     tokens/s and the device idle share over one decode step;
+     tokens/s and the device idle share over one decode step, with the
+     device time of the port's kernels in that step and in the longest
+     prompt's prefill;
   8. the cross-pod delta sync (`repro_torch.distributed.hier_sync`),
      4 pods stacked on the card, `make_pod_sync` in its three modes
      (selective float32, selective int8, full) on the delta-sync bench's
@@ -56,7 +58,10 @@ flash_decode, topk_router): phase 3 holds them to their plain versions
 within the tolerances of `repro_torch.kernels.cases`; phase 5 times them
 at the bfloat16 serving shapes beside their bound (bytes over 3.35 TB/s
 or flops over 989 TFLOP/s bf16 / 67 TFLOP/s float32) and one PyTorch
-call of the same function (scaled_dot_product_attention, rms_norm).
+call of the same function (scaled_dot_product_attention, rms_norm),
+flash_attention at every prefill length of phase 7's prompts, each with
+its eager time (host launch and tensor-map encode included).  Phase 2
+logs each kernel's ptxas report (registers, shared memory, spills).
 Phase 3 holds selective_flush to its plain version bitwise on
 `cases.FLUSH_CASES`; phase 8 times it.
 
@@ -409,17 +414,26 @@ def measure_serving(torch, C, ops, errs, prompt_lens) -> list:
           lambda: F.rms_norm(x, (d,), w_bf, 1e-6),
           2 * es * rows * d + 4 * d, 3 * rows * d, OPS_PER_S)
 
-    s = max(prompt_lens)      # the longest prompt's prefill
-    q, k, v = randn(1, 16, s, 64), randn(1, 8, s, 64), randn(1, 8, s, 64)
-    entry("flash_attention",
-          "src/repro/kernels/flash_attention/kernel.py:72",
-          f"q [1,16,{s},64] k/v [1,8,{s},64] bf16 causal (prefill)",
-          lambda: FA.flash_attention(q, k, v),
-          lambda: FA.flash_attention_ref(q, k, v),
-          lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                 enable_gqa=True),
-          es * 64 * (2 * 16 * s + 2 * 8 * s),
-          4 * 64 * 16 * s * (s + 1) / 2, BF16_FLOPS)
+    # every prefill length of phase 7's prompts; the longest is the
+    # kernel's entry, the others go to its `by_length`
+    by_length = []
+    for s in sorted(set(prompt_lens)):
+        q, k, v = (randn(1, 16, s, 64), randn(1, 8, s, 64),
+                   randn(1, 8, s, 64))
+        entry("flash_attention",
+              "src/repro/kernels/flash_attention/kernel.py:72",
+              f"q [1,16,{s},64] k/v [1,8,{s},64] bf16 causal (prefill)",
+              lambda: FA.flash_attention(q, k, v),
+              lambda: FA.flash_attention_ref(q, k, v),
+              lambda: F.scaled_dot_product_attention(
+                  q, k, v, is_causal=True, enable_gqa=True),
+              es * 64 * (2 * 16 * s + 2 * 8 * s),
+              4 * 64 * 16 * s * (s + 1) / 2, BF16_FLOPS)
+        rec = out.pop()
+        by_length.append({key: rec[key] for key in (
+            "shape", "ms", "plain_ms", "library_ms", "eager_ms",
+            "bound_ms", "bound_by")} | {"s": s})
+    out.append(rec | {"by_length": by_length})
 
     # decode: the first four prompts half-way through their new tokens
     b, S = SERVE_SLOTS, SERVE_MAX_LEN
@@ -436,7 +450,11 @@ def measure_serving(torch, C, ops, errs, prompt_lens) -> list:
           lambda: F.scaled_dot_product_attention(
               qd[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True),
           2 * es * 64 * 8 * valid + 2 * es * b * 16 * 64 + 4 * b,
-          4 * 16 * 64 * valid, BF16_FLOPS)
+          4 * 16 * 64 * valid, BF16_FLOPS,
+          note=lambda rec: {"clusters": b * 8, "resident_clusters":
+                            FD.resident_clusters(16, 8, S, 64, bf)})
+    log(f"    flash_decode launches {out[-1]['clusters']} clusters of 8 "
+        f"CTAs; {out[-1]['resident_clusters']} fit on the card at once")
 
     t, e, topk = SERVE_SLOTS, 32, 8
     logits = torch.randn((t, e), generator=gen, device=dev)
@@ -629,12 +647,22 @@ def serve_path(torch, counters) -> dict:
         busy_s, kernels = device_busy(torch, step)
         idle = 1.0 - busy_s * 1e3 / step_ms
         top = sorted(kernels, key=_dev_us, reverse=True)[:8]
+        # the longest prompt's prefill under the profiler: where the
+        # attention kernel's time sits in it
+        ptok = torch.as_tensor(reqs[0].prompt[None].astype(np.int64),
+                               device=dev)
+        pre_busy_s, pre_kernels = device_busy(
+            torch, lambda: model.prefill(params, {"tokens": ptok}))
         rec.update({"prefill_ms": pre, "decode_ms_per_step": step_ms,
                     "decode_busy_ms": busy_s * 1e3, "decode_idle_share": idle,
                     "decode_kernel_launches": sum(e.count for e in kernels),
                     "decode_top": [{"name": e.key[:60], "count": e.count,
                                     "device_ms": _dev_us(e) / 1e3}
-                                   for e in top]})
+                                   for e in top],
+                    "decode_port_kernels": _port_kernels(kernels),
+                    "prefill_longest_busy_ms": pre_busy_s * 1e3,
+                    "prefill_longest_port_kernels": _port_kernels(
+                        pre_kernels)})
         log(f"  (3) bf16 prefill ms per request (prompt lengths {lens}): "
             f"{[round(x, 3) for x in pre]}; decode {step_ms:.3f} ms per "
             f"step ({SERVE_SLOTS} slots); {rec['tokens_per_s']:.1f} "
@@ -645,7 +673,29 @@ def serve_path(torch, counters) -> dict:
         for t in rec["decode_top"]:
             log(f"    {t['device_ms']:9.3f} ms  x{t['count']:5d}  "
                 f"{t['name']}")
+        log(f"    the port's kernels in that step: "
+            f"{rec['decode_port_kernels']}")
+        log(f"    prefill of {lens[0]} tokens under torch.profiler: device "
+            f"busy {rec['prefill_longest_busy_ms']:.3f} ms; the port's "
+            f"kernels: {rec['prefill_longest_port_kernels']}")
     return rec
+
+
+# the __global__ functions of csrc/ that the serving path launches
+PORT_KERNELS = ("rmsnorm_kernel", "wgmma_kernel", "flash_kernel",
+                "decode_kernel", "router_kernel")
+
+
+def _port_kernels(kernels) -> dict:
+    """{kernel: [launches, device ms]} of the port's serving kernels
+    among torch.profiler's CUDA kernel records."""
+    out = {}
+    for e in kernels:
+        for name in PORT_KERNELS:
+            if f"::{name}" in e.key:
+                n, ms = out.get(name, (0, 0.0))
+                out[name] = (n + e.count, ms + _dev_us(e) / 1e3)
+    return {k: [n, round(ms, 6)] for k, (n, ms) in out.items()}
 
 
 def _leaves(tree):
@@ -802,8 +852,10 @@ def main(argv=None) -> int:
         f"{build_s:.2f} s (others cached) into {common.BUILD}")
     for name, rep in reports.items():
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"    {name}: {line.strip()}")
+            if "entry function" in line:    # the kernel the next lines are of
+                log(f"    {name}: {line.split(chr(39))[1]}")
+            elif "registers" in line or "spill" in line:
+                log(f"    {name}:   {line.strip()}")
 
     serve_ops = {"rmsnorm": RN, "flash_attention": FA,
                  "flash_decode": FD, "topk_router": TR}

@@ -203,9 +203,10 @@ def attn_inputs(seed, b, hq, hkv, s, d):
                                (b, hkv, s, d)))
 
 
-def decode_inputs(seed, b, hq, hkv, s, d):
+def decode_inputs(seed, b, hq, hkv, s, d, lens=None):
     """flash_decode (q [B,Hq,D], k, v [B,Hkv,S,D], kv_len [B] int32): a
-    ragged valid prefix with kv_len 1 in row 0 and S in row 1 when B > 1."""
+    ragged valid prefix with kv_len 1 in row 0 and S in row 1 when B > 1,
+    or the given `lens`."""
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((b, hq, d)).astype(np.float32)
     k = rng.standard_normal((b, hkv, s, d)).astype(np.float32)
@@ -214,6 +215,8 @@ def decode_inputs(seed, b, hq, hkv, s, d):
     kv_len[0] = 1
     if b > 1:
         kv_len[1] = s
+    if lens is not None:
+        kv_len = np.asarray(lens, np.int32)
     return q, k, v, kv_len
 
 
@@ -248,14 +251,24 @@ ATTN_CASES = (
     [(f"S={s} {dt}", dict(b=1, hq=16, hkv=8, s=s, d=64), dt)
      for s in (1, 5, 17, 64, 200, 512) for dt in ("float32", "bfloat16")]
     + [("SMOKE B=2 S=33 float32", dict(b=2, hq=4, hkv=2, s=33, d=16),
-        "float32")])
+        "float32")]
+    # the timed prefill shape (phase 5 of chip_smoke.py)
+    + [(f"S=256 {dt}", dict(b=1, hq=16, hkv=8, s=256, d=64), dt)
+       for dt in ("bfloat16", "float32")])
 DECODE_CASES = (
     [(f"B=4 S=512 {dt}", dict(b=4, hq=16, hkv=8, s=512, d=64), dt)
      for dt in ("float32", "bfloat16")]
     + [("B=5 S=48 SMOKE float32", dict(b=5, hq=4, hkv=2, s=48, d=16),
         "float32"),
        ("B=1 S=1 bfloat16", dict(b=1, hq=16, hkv=8, s=1, d=64),
-        "bfloat16")])
+        "bfloat16")]
+    # kv_len at the edges of the kernel's 8-way split of the prefix: shares
+    # of 0 and 1 positions, empty ranks
+    + [(f"B=5 S=64 kv_len 7,8,9,1,64 {dt}",
+        dict(b=5, hq=16, hkv=8, s=64, d=64, lens=(7, 8, 9, 1, 64)), dt)
+       for dt in ("bfloat16", "float32")]
+    + [("B=3 S=24 SMOKE kv_len 7,8,9 float32",
+        dict(b=3, hq=4, hkv=2, s=24, d=16, lens=(7, 8, 9)), "float32")])
 ROUTER_CASES = [
     ("T=4 E=32 k=8", dict(t=4, e=32), 8),
     ("T=17 E=32 k=8", dict(t=17, e=32), 8),

@@ -129,7 +129,7 @@ def build(names=KERNELS) -> dict:
     return reports
 
 
-def _library(name: str) -> ctypes.CDLL:
+def library(name: str) -> ctypes.CDLL:
     """The loaded shared library of kernel `name`, built on first use."""
     if name not in _LIBS:
         path = lib_path(name)
@@ -151,7 +151,7 @@ def launch(name: str, argtypes: list, device: torch.device, *args) -> None:
     stream after this returns.  PyTorch's caching allocator reuses a freed
     block only for work ordered after it on the same stream, so inputs
     and scratch the caller drops afterwards stay valid for the kernel."""
-    lib = _library(name)
+    lib = library(name)
     fn = getattr(lib, f"{name}_launch")
     if fn.argtypes is None:
         fn.argtypes = argtypes + [ctypes.c_void_p]     # ... stream

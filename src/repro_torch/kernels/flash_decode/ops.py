@@ -23,7 +23,18 @@ from repro_torch.kernels import common
 
 NEG_INF = -1e30
 MAX_GROUP = 8           # DEC_MAX_GROUP in csrc/flash_decode.cu
+CLUSTER = 8             # DEC_CLUSTER: CTAs that split one row's cache
+WARPS = 8               # DEC_WARPS
 SMEM_BYTES = 227 * 1024
+
+
+def smem_bytes(group: int, s: int, d: int) -> int:
+    """Shared memory of one CTA of the kernel, float32: the warps' partial
+    P.V ([8, group, D]), the ranks' partials that rank 0 adds ([8, group,
+    D]), the share's scores ([group, ceil(S/8)]) and the ranks' (max,
+    sum) pairs ([8, group, 2])."""
+    return 4 * group * (d * (WARPS + CLUSTER) + common.cdiv(s, CLUSTER)
+                        + 2 * CLUSTER)
 
 
 def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -52,11 +63,19 @@ def _launch(q, k, v, kv_len, scale):
     hkv, s = k.shape[1], k.shape[2]
     code = common.float_code(q, "q")
     group = hq // hkv if hkv else 0
-    smem = 4 * group * (s + d)
-    if hkv == 0 or hq % hkv or group > MAX_GROUP or smem > SMEM_BYTES:
+    lanes = d * q.element_size() // 16      # 16-byte loads per cache row
+    if hkv == 0 or hq % hkv or group > MAX_GROUP \
+            or smem_bytes(group, s, d) > SMEM_BYTES \
+            or lanes * 16 != d * q.element_size() or not 1 <= lanes <= 32 \
+            or lanes & (lanes - 1):
         raise ValueError(f"flash_decode kernel takes Hq % Hkv == 0, group <= "
-                         f"{MAX_GROUP} and 4*group*(S+D) <= {SMEM_BYTES} B, "
-                         f"got Hq={hq} Hkv={hkv} S={s} D={d}")
+                         f"{MAX_GROUP}, D * element size a power-of-two "
+                         f"multiple of 16 bytes up to 512 and "
+                         f"4*group*(16*D + ceil(S/8) + 16) <= {SMEM_BYTES} "
+                         f"B, got Hq={hq} Hkv={hkv} S={s} D={d} {q.dtype}")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("flash_decode kernel: k and v must start on 16 "
+                         "bytes")
     common.require(q, "q", q.dtype, (b, hq, d))
     common.require(k, "k", q.dtype, (b, hkv, s, d))
     common.require(v, "v", q.dtype, (b, hkv, s, d))
@@ -68,6 +87,17 @@ def _launch(q, k, v, kv_len, scale):
                   b, hq, hkv, s, d, scale, code)
     flash_decode.launches += 1
     return out
+
+
+def resident_clusters(hq: int, hkv: int, s: int, d: int,
+                      dtype: torch.dtype) -> int:
+    """Clusters of 8 CTAs of the kernel that the card holds at once for
+    this shape (`cudaOccupancyMaxActiveClusters`); a launch of B * Hkv
+    clusters beyond it runs in waves.  Needs the card."""
+    fn = common.library("flash_decode").flash_decode_resident_clusters
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_int
+    return fn(hq, hkv, s, d, common.FLOAT_CODES[dtype])
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -145,6 +145,83 @@ def test_flash_decode_kernel_on_card(cuda, k):
                   *C.float_args("flash_decode", k), cuda)
 
 
+# bf16 at granite's width (the wgmma kernel) at the edges of its 64-row
+# tiles and at a long prompt, B=2; and bf16 at the SMOKE width D=16 (the
+# CUDA-core kernel)
+ATTN_SHAPES = ([dict(b=2, hq=16, hkv=8, s=s, d=64)
+                for s in (1, 15, 16, 63, 64, 65, 256, 1024)]
+               + [dict(b=2, hq=4, hkv=2, s=33, d=16)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", ATTN_SHAPES,
+                         ids=[f"S={kw['s']} D={kw['d']}" for kw in ATTN_SHAPES])
+def test_flash_attention_bf16_kernel_on_card(cuda, kw):
+    """Within `C.TOL["bfloat16"]` of its plain version (the kernel rounds
+    p to bf16 before P.V; the source note bounds what that adds)."""
+    xs = C.attn_inputs(100 + kw["s"], **kw)
+    C.check_float(FA.flash_attention, FA.flash_attention_ref,
+                  [C.to_dtype(x, "bfloat16") for x in xs], "bfloat16", cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 272])
+def test_flash_decode_row_is_independent_of_the_batch(cuda, dt, n):
+    """Every row of a B=4 batch (row 2 at kv_len n, the others at random
+    lengths) is bitwise the same row run alone (B=1): the output depends
+    on nothing but the row's own (q, k, v, kv_len)."""
+    q, k, v, lens = C.decode_inputs(40 + n, 4, 16, 8, 512, 64)
+    lens[2] = n
+    args = [C.to_dtype(x, dt).to(cuda) for x in (q, k, v)]
+    kv_len = torch.from_numpy(lens).to(cuda)
+    got = FD.flash_decode(*args, kv_len)
+    for i in range(4):
+        alone = FD.flash_decode(*(a[i:i + 1] for a in args),
+                                kv_len[i:i + 1])
+        np.testing.assert_array_equal(_bits(got[i:i + 1]), _bits(alone))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_attention_kernels_are_bitwise_deterministic(cuda, dt):
+    """The same inputs give the same bits from run to run: both kernels
+    sum in a fixed order and use no float atomics."""
+    xs = [C.to_dtype(x, dt).to(cuda)
+          for x in C.attn_inputs(5, 2, 16, 8, 256, 64)]
+    first = FA.flash_attention(*xs)
+    for _ in range(3):
+        np.testing.assert_array_equal(_bits(first),
+                                      _bits(FA.flash_attention(*xs)))
+    q, k, v, lens = C.decode_inputs(6, 4, 16, 8, 512, 64)
+    args = ([C.to_dtype(x, dt).to(cuda) for x in (q, k, v)]
+            + [torch.from_numpy(lens).to(cuda)])
+    first = FD.flash_decode(*args)
+    for _ in range(3):
+        np.testing.assert_array_equal(_bits(first),
+                                      _bits(FD.flash_decode(*args)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [32768, 20001])
+def test_flash_decode_long_cache_on_card(cuda, n):
+    """A 32,768-position cache, past the 29,000 or so that a whole score
+    row in one CTA's shared memory allowed, against its plain version."""
+    q, k, v, lens = C.decode_inputs(9, 1, 16, 8, 32768, 64, lens=(n,))
+    C.check_float(FD.flash_decode, FD.flash_decode_ref,
+                  [C.to_dtype(x, "bfloat16") for x in (q, k, v)]
+                  + [torch.from_numpy(lens)], "bfloat16", cuda)
+
+
+def test_flash_decode_shared_memory_fits_long_caches():
+    """One CTA holds only its eighth of the scores: granite's group of 2
+    and the widest group, 8, fit a 32,768-position cache; a cache whose
+    share of scores does not fit is refused before launch."""
+    for group in (2, FD.MAX_GROUP):
+        assert FD.smem_bytes(group, 32768, 64) <= FD.SMEM_BYTES
+    assert FD.smem_bytes(FD.MAX_GROUP, 65536, 64) > FD.SMEM_BYTES
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", range(len(C.ROUTER_CASES)),
                          ids=_ids(C.ROUTER_CASES))
@@ -164,6 +241,19 @@ def test_serving_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         RN.rmsnorm(torch.zeros((2, 8), dtype=torch.float16, device=cuda),
                    torch.ones(8, device=cuda))
+    lens = torch.ones(1, dtype=torch.int32, device=cuda)
+    cache = torch.zeros((1, 2, 8, 64), device=cuda)
+    with pytest.raises(ValueError, match="group <= 8"):
+        FD.flash_decode(torch.zeros((1, 18, 64), device=cuda), cache, cache,
+                        lens)
+    with pytest.raises(ValueError, match="power-of-two"):
+        FD.flash_decode(torch.zeros((1, 4, 24), device=cuda),
+                        cache[..., :24].contiguous(),
+                        cache[..., :24].contiguous(), lens)
+    cache = torch.zeros((1, 1, 65536, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="ceil"):
+        FD.flash_decode(torch.zeros((1, 8, 64), dtype=torch.bfloat16,
+                                    device=cuda), cache, cache, lens)
 
 
 def test_dispatch_is_by_device():
