@@ -18,10 +18,14 @@ Phases, each fatal on failure:
      n=64 srsp/rsp/baseline on the fused engine at seeds 0 and 4, n=64
      srsp on the serial and batched engines, n=256 srsp fused; each
      cell's `steady_s`; every kernel must have launched;
-  5. per kernel at the n=64 shapes: device time per call of the kernel
-     and of its plain version (CUDA graph replay timed with CUDA events),
-     the least time the card could take (bytes over 3.35 TB/s, or
-     operations over 67 TOP/s), and the launches of phase 4;
+  5. per kernel at the n=64 shapes and at n=256 (`fuse_ab`'s): device
+     time per call of the kernel and of its plain version (CUDA graph
+     replay timed with CUDA events, `repro_torch.kernels.timing`), eager
+     time per call (host launch included), the least time the card could
+     take (bytes over 3.35 TB/s, or operations over 67 TOP/s), the
+     launches of phase 4, and the device operations one call makes under
+     torch.profiler: exactly one kernel record, no memset or fill, for
+     drain_writeback and trip_plan;
   6. the device's busy time and idle share over one fused n=64 srsp run
      (torch.profiler);
   7. the serving path of granite-moe-1b-a400m (`repro_torch.serve`):
@@ -86,6 +90,7 @@ N_MAIN = 64                     # the paper's 64-CU GPU
 GOLDEN_TOL = 1e-3               # float32 logits, card vs the JAX CPU run
 BF16_MARGIN = 0.125             # 8 bf16 ulps of logits of size 2-4
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW = 4, 512, 32
+T = None                        # repro_torch.kernels.timing, set by main
 CELLS = ([(s, N_MAIN, seed, "fused") for seed in (0, 4)
           for s in ("srsp", "rsp", "baseline")]
          + [("srsp", N_MAIN, 4, "serial"), ("srsp", N_MAIN, 4, "batched"),
@@ -221,99 +226,54 @@ def run_main_path(torch, golden, launch_counters) -> list:
     return rows
 
 
-def device_ms(torch, fn, iters=50) -> float:
-    """Device time per call: `iters` calls captured in one CUDA graph,
-    replayed and timed with CUDA events (host launch cost excluded)."""
-    s = torch.cuda.Stream()
-    s.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(s):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(s)
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(iters):
-            fn()
-    g.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(5):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        g.replay()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b) / iters)
-    return sorted(times)[len(times) // 2]
-
-
-def eager_ms(torch, fn, iters=200) -> float:
-    """Wall time per call as the main path pays it (launch included)."""
-    for _ in range(10):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
-
-
 def bound(bytes_moved: float, ops: float, ops_per_s=OPS_PER_S) -> tuple:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# the TPU kernel each of the simulator's kernels replaces
+SIM_REPLACES = {
+    "drain_writeback": "src/repro/kernels/selective_flush/kernel.py:93",
+    "plane_commit": "src/repro/kernels/fused_turn/kernel.py:138",
+    "trip_plan": "src/repro/kernels/fused_turn/kernel.py:94",
+}
+
+
 def measure(torch, C, SF, FT, errs, launches) -> list:
-    """Phase 5: kernel vs plain version at the n=64 main-path shapes."""
+    """Phase 5, the simulator's kernels at the kv_directory shapes of
+    n=64 (the entry) and n=256 (with n=64 in `by_shape`): device time per
+    call of the kernel and of its plain version, eager time of both, the
+    bound, and the device operations one call makes under torch.profiler
+    (`T.device_ops`), which must be exactly one kernel record for the
+    `T.ONE_OP` kernels."""
     dev = torch.device("cuda")
-    out = []
-
-    def entry(name, src, replaces, shape, fn, plain, nbytes, ops):
-        b_ms, b_by = bound(nbytes, ops)
-        rec = {"name": name, "route": "cuda", "source": src,
-               "replaces": replaces, "launches": launches[name],
-               "max_abs_err": errs[name], "ms": device_ms(torch, fn),
-               "plain_ms": device_ms(torch, plain), "bound_ms": b_ms,
-               "bound_by": b_by, "library_ms": None, "shape": shape,
-               "eager_ms": eager_ms(torch, fn),
-               "plain_eager_ms": eager_ms(torch, plain)}
-        log(f"  {name} {shape}: {rec['ms']:.5f} ms/call (plain "
-            f"{rec['plain_ms']:.5f}), eager {rec['eager_ms']:.5f} ms "
-            f"(plain {rec['plain_eager_ms']:.5f}), bound {b_ms:.7f} ms "
-            f"({b_by}), launches {rec['launches']}")
-        out.append(rec)
-
-    nb, w, m = 128, 16, N_MAIN * 16      # b_drain: n caches x fifo_cap
-    xs = [C.to_torch(x).to(dev) for x in C.dw_inputs(1, nb, w, m)]
-    entry("drain_writeback", "src/repro_torch/csrc/drain_writeback.cu",
-          "src/repro/kernels/selective_flush/kernel.py:93",
-          f"nb={nb} W={w} m={m}", lambda: SF.drain_writeback(*xs),
-          lambda: SF.drain_writeback_ref(*xs),
-          # each bank word is read once (from l2 or from its owning row)
-          # and written once, plus the packed mask and the index list
-          4 * (2 * nb * w + m * xs[2].shape[1] + m), m * w + nb * w)
-    n = N_MAIN
-    xs = [C.to_torch(x).to(dev) for x in C.pc_inputs(1, n, nb, w)]
-    words = xs[0].numel()
-    entry("plane_commit", "src/repro_torch/csrc/plane_commit.cu",
-          "src/repro/kernels/fused_turn/kernel.py:138",
-          f"n={n} nb={nb} L={xs[0].shape[2]}", lambda: FT.plane_commit(*xs),
-          lambda: FT.plane_commit_ref(*xs),
-          4 * 4 * words + n * (4 + 4 + 1 + 1) + 2 * n, 2 * words)
-    xs = [C.to_torch(x).to(dev) for x in C.plan_inputs(1, n)]
-    entry("trip_plan", "src/repro_torch/csrc/trip_plan.cu",
-          "src/repro/kernels/fused_turn/kernel.py:94",
-          f"n={n} remote_cap=False",
-          lambda: FT.trip_plan(*xs, None, remote_cap=False),
-          lambda: FT.trip_plan_ref(*xs[:4], None, None),
-          n * (4 + 1 + 1 + 4) + 2 * n + 4, 16 * n)
-    return out
+    shapes = {}
+    for n in T.SIM_NS:
+        for call in T.sim_calls(C, SF, FT, n, dev):
+            name, fn, plain = call["name"], call["fn"], call["plain"]
+            b_ms, b_by = bound(call["bytes"], call["ops"])
+            ops = T.device_ops(fn)
+            rec = {"shape": call["shape"], "ms": T.device_ms(fn),
+                   "plain_ms": T.device_ms(plain), "bound_ms": b_ms,
+                   "bound_by": b_by, "eager_ms": T.eager_ms(fn),
+                   "plain_eager_ms": T.eager_ms(plain),
+                   "device_ops": ops}
+            log(f"  {name} {call['shape']}: {rec['ms']:.7f} ms/call (plain "
+                f"{rec['plain_ms']:.7f}), eager {rec['eager_ms']:.7f} ms "
+                f"(plain {rec['plain_eager_ms']:.7f}), bound {b_ms:.7f} ms "
+                f"({b_by}); device ops a call: {ops}")
+            if name in T.ONE_OP and (sum(ops.values()) != 1 or not any(
+                    T.ONE_OP[name] in k for k in ops)):
+                raise AssertionError(f"{name} {call['shape']}: one call "
+                                     f"made {ops}, want one kernel")
+            shapes.setdefault(name, []).append(rec)
+    return [{"name": name, "route": "cuda",
+             "source": f"src/repro_torch/csrc/{name}.cu",
+             "replaces": SIM_REPLACES[name], "launches": launches[name],
+             "max_abs_err": errs[name], "library_ms": None}
+            | recs[0] | {"by_shape": recs}
+            for name, recs in shapes.items()]
 
 
 def profile_cell(torch, steady_s: float) -> dict:
@@ -386,11 +346,11 @@ def measure_serving(torch, C, ops, errs, prompt_lens) -> list:
         rec = {"name": name, "route": "cuda",
                "source": f"src/repro_torch/csrc/{name}.cu",
                "replaces": replaces, "launches": None,
-               "max_abs_err": errs[name], "ms": device_ms(torch, fn),
-               "plain_ms": device_ms(torch, plain), "bound_ms": b_ms,
+               "max_abs_err": errs[name], "ms": T.device_ms(fn),
+               "plain_ms": T.device_ms(plain), "bound_ms": b_ms,
                "bound_by": b_by,
-               "library_ms": device_ms(torch, library) if library else None,
-               "shape": shape, "eager_ms": eager_ms(torch, fn)}
+               "library_ms": T.device_ms(library) if library else None,
+               "shape": shape, "eager_ms": T.eager_ms(fn)}
         if note:
             rec.update(note(rec))
         lib = "none" if rec["library_ms"] is None \
@@ -463,8 +423,8 @@ def measure_serving(torch, C, ops, errs, prompt_lens) -> list:
           lambda: TR.topk_router(logits, topk),
           lambda: TR.topk_router_ref(logits, topk), None,
           4 * t * e + 8 * t * topk, t * e * (3 + topk), OPS_PER_S,
-          note=lambda rec: {"two_call_ms": device_ms(
-              torch, lambda: torch.softmax(logits, -1).topk(topk)),
+          note=lambda rec: {"two_call_ms": T.device_ms(
+              lambda: torch.softmax(logits, -1).topk(topk)),
               "library_note": "no one PyTorch call; two_call_ms is "
                               "softmax + topk (no renormalisation)"})
     return out
@@ -770,11 +730,12 @@ def delta_sync_path(torch, SF) -> tuple:
                / chk["selective_f32"]["bytes_full"],
                "sync_ms": wall, "selective_f32_profile": prof,
                "flush_rows": k, "flush_valid_rows": valid,
-               "ms": device_ms(torch, lambda: SF.selective_flush(flat,
+               "ms": T.device_ms(lambda: SF.selective_flush(flat, fidx)),
+               "eager_ms": T.eager_ms(lambda: SF.selective_flush(flat,
                                                                  fidx)),
-               "plain_ms": device_ms(torch, lambda: SF.selective_flush_ref(
+               "plain_ms": T.device_ms(lambda: SF.selective_flush_ref(
                    flat, fidx)),
-               "library_ms": device_ms(torch, lambda: torch.index_select(
+               "library_ms": T.device_ms(lambda: torch.index_select(
                    flat, 0, clipped)),
                "bound_ms": b_ms, "bound_by": b_by}
         log(f"  {b.label:18s} {n_pods}x{nb}x{bs} max_dirty={b.max_dirty}: "
@@ -793,7 +754,8 @@ def delta_sync_path(torch, SF) -> tuple:
                 for t in prof["top"][:3]))
         log(f"    flush [{n_pods * nb},{bs}] f32, {k} rows ({valid} valid): "
             f"{rec['ms']:.5f} ms/call (plain {rec['plain_ms']:.5f}, "
-            f"index_select {rec['library_ms']:.5f}), bound {b_ms:.7f} ms "
+            f"index_select {rec['library_ms']:.5f}), eager "
+            f"{rec['eager_ms']:.5f} ms, bound {b_ms:.7f} ms "
             f"({b_by})")
         recs.append(rec)
         if b.label == "granite_embedding":
@@ -803,6 +765,7 @@ def delta_sync_path(torch, SF) -> tuple:
                                  "kernel.py:38",
                      "launches": launches, "max_abs_err": err,
                      "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                     "eager_ms": rec["eager_ms"],
                      "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": rec["library_ms"],
                      "shape": f"delta [{n_pods * nb},{bs}] f32, {k} rows "
@@ -824,10 +787,12 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    global T
     try:
         from repro_torch.configs import granite_moe_1b
         from repro_torch.kernels import cases as C
         from repro_torch.kernels import common
+        from repro_torch.kernels import timing as T
         from repro_torch.kernels.flash_attention import ops as FA
         from repro_torch.kernels.flash_decode import ops as FD
         from repro_torch.kernels.fused_turn import ops as FT

@@ -35,10 +35,12 @@ def to_torch(x) -> torch.Tensor:
     return torch.from_numpy(x.view(np.int32) if x.dtype == np.uint32 else x)
 
 
-def dw_inputs(seed, nb, w, m, *, dup=True, pad=True, oor=False):
+def dw_inputs(seed, nb, w, m, *, dup=True, pad=True, oor=False, hot=()):
     """drain_writeback (l2, rows, dirty, idx).  dup=False draws distinct
     destinations (the b_writeback shape); pads are -1; out-of-range
-    destinations are >= nb."""
+    destinations are >= nb.  `hot` rows take half the entries (before
+    pads and out-of-range ones are planted): many duplicates of each,
+    e.g. on both sides of the kernel's tile edge."""
     rng = np.random.default_rng(seed)
     l2 = rng.integers(-2**31, 2**31, (nb, w), dtype=np.int64) \
         .astype(np.int32)
@@ -49,6 +51,9 @@ def dw_inputs(seed, nb, w, m, *, dup=True, pad=True, oor=False):
         idx = rng.integers(0, max(2, nb // 4), m).astype(np.int32)
     else:
         idx = rng.permutation(nb)[:m].astype(np.int32)
+    if len(hot):
+        pick = rng.random(m) < 0.5
+        idx[pick] = rng.choice(np.asarray(hot, np.int32), int(pick.sum()))
     if pad:
         idx[rng.random(m) < 0.25] = -1
     if oor:
@@ -78,12 +83,21 @@ def pc_inputs(seed, n, nb, w, *, oor=False):
     return wv, wd, b, o, sv, sd
 
 
-def plan_inputs(seed, n, *, can_l=None, can_r=None):
+def plan_inputs(seed, n, *, can_l=None, can_r=None, ties=None):
     """trip_plan (clocks, can_l, can_r, bound, raddr).  Small-integer
     clocks force ties, the lexicographic order's hard case; can_l/can_r
-    given as a bool fill the whole mask."""
+    given as a bool fill the whole mask.  ties="signed_zero" puts every
+    third clock at the minimum, alternately +0.0 and -0.0 (equal as
+    floats, so the first index must win whatever its sign); ties="equal"
+    makes every clock the same."""
     rng = np.random.default_rng(seed)
     clocks = rng.integers(0, max(2, n // 3), n).astype(np.float32)
+    if ties == "signed_zero":
+        clocks += 1.0
+        zero = np.arange(0, n, 3)
+        clocks[zero] = np.where(np.arange(len(zero)) % 2, -0.0, 0.0)
+    elif ties == "equal":
+        clocks[:] = clocks[0]
     cl = rng.random(n) < 0.6 if can_l is None else np.full(n, can_l)
     cr = rng.random(n) < 0.4 if can_r is None else np.full(n, can_r)
     bound = rng.integers(1, 5, n).astype(np.float32)
@@ -98,6 +112,12 @@ DRAIN_CASES = [
     ("b_drain n=256", dict(nb=512, w=16, m=4096)),
     ("dups+pads+out-of-range, bit 31", dict(nb=32, w=64, m=48, oor=True)),
     ("ragged lane, no pads", dict(nb=16, w=40, m=40, pad=False, oor=True)),
+] + [
+    # a bank of many of the kernel's row tiles (W=16: 16 rows a CTA over
+    # one wave; 768 rows the most one CTA's map holds): duplicates on both
+    # sides of tile edges, pads and out-of-range rows
+    ("past one tile", dict(nb=2048, w=16, m=512, oor=True,
+                           hot=(0, 766, 767, 768, 769, 1535, 1536, 2047))),
 ]
 COMMIT_CASES = [
     ("n=64", dict(n=64, nb=128, w=16)),
@@ -112,7 +132,12 @@ PLAN_CASES = (
      for fenced in (False, True)]
     + [(f"n=64 empty masks can_l={cl} can_r={cr}",
         dict(n=64, can_l=cl, can_r=cr), True, False)
-       for cl, cr in ((False, False), (True, False), (False, True))])
+       for cl, cr in ((False, False), (True, False), (False, True))]
+    # one warp and just past it, clocks tied at the minimum
+    + [(f"n={n} ties={ties} remote_cap={cap} fenced={fenced}",
+        dict(n=n, ties=ties), cap, fenced)
+       for n in (32, 33) for ties in ("signed_zero", "equal")
+       for cap in (False, True) for fenced in (False, True)])
 
 
 def horizon(clocks, fenced):

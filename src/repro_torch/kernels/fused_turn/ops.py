@@ -71,27 +71,29 @@ def _plan_launch(clocks, can_l, can_r, bound, raddr, horizon, remote_cap):
     if not 1 <= n <= MAX_PLAN_LANES:
         raise ValueError(f"trip_plan kernel takes 1..{MAX_PLAN_LANES} "
                          f"lanes, got {n}")
-    if raddr is None:
-        raddr = torch.zeros((n,), dtype=I32, device=clocks.device)
     for t, name, dt in ((clocks, "clocks", torch.float32),
                         (can_l, "can_l", torch.bool),
                         (can_r, "can_r", torch.bool),
-                        (bound, "bound", torch.float32),
-                        (raddr, "raddr", I32)):
+                        (bound, "bound", torch.float32)):
         common.require(t, name, dt, (n,))
-    lmask = torch.empty((n,), dtype=torch.bool, device=clocks.device)
-    rmask = torch.empty_like(lmask)
-    wg = torch.empty((1,), dtype=I32, device=clocks.device)
+    if remote_cap:
+        common.require(raddr, "raddr", I32, (n,))
+    # one buffer for the three outputs: lmask bytes [0, n), rmask bytes
+    # [n, 2n), wg the int32 at bytes [off, off + 4)
+    off = common.round_up(2 * n, 4)
+    buf = torch.empty((off + 4,), dtype=torch.uint8, device=clocks.device)
+    lmask, rmask, _ = buf.view(torch.bool).split((n, n, off + 4 - 2 * n))
+    wg = buf.view(I32)[off // 4]
     common.launch("trip_plan", [ctypes.c_void_p] * 5
                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int]
                   + [ctypes.c_void_p] * 3, clocks.device,
-                  *(common.ptr(t) for t in (clocks, can_l, can_r, bound,
-                                            raddr)),
+                  *(common.ptr(t) for t in (clocks, can_l, can_r, bound)),
+                  common.ptr(raddr) if remote_cap else ctypes.c_void_p(),
                   BIG if horizon is None else float(horizon),
                   int(remote_cap), n,
                   *(common.ptr(t) for t in (lmask, rmask, wg)))
     trip_plan.launches += 1
-    return TripPlan(lmask, rmask, wg[0])
+    return TripPlan(lmask, rmask, wg)
 
 
 def trip_plan(clocks, can_l, can_r, bound, raddr, horizon, *,

@@ -27,6 +27,9 @@ from repro_torch.core import bitmask
 from repro_torch.kernels import common
 
 I32 = torch.int32
+# drain_writeback's tile holds at least one bank row's owner map in 48 KB
+# of shared memory (csrc/drain_writeback.cu kOwnerWords)
+MAX_WRITEBACK_WORDS = 48 * 1024 // 4
 
 
 def selective_flush_ref(bank: torch.Tensor, indices: torch.Tensor
@@ -127,12 +130,14 @@ def _launch(l2, rows, dirty, indices):
     common.require(rows, "rows", I32, (m, w))
     common.require(dirty, "dirty", I32, (m, bitmask.n_lanes(w)))
     common.require(indices, "indices", I32, (m,))
+    if w > MAX_WRITEBACK_WORDS:
+        raise ValueError(f"drain_writeback kernel takes W <= "
+                         f"{MAX_WRITEBACK_WORDS} words a block, got {w}")
     out = torch.empty_like(l2)
-    owner = torch.empty_like(l2)
-    common.launch("drain_writeback", [ctypes.c_void_p] * 6
+    common.launch("drain_writeback", [ctypes.c_void_p] * 5
                   + [ctypes.c_int] * 4, l2.device,
-                  *(common.ptr(t) for t in (l2, rows, dirty, indices, owner,
-                                            out)), nb, w, m, lanes)
+                  *(common.ptr(t) for t in (l2, rows, dirty, indices, out)),
+                  nb, w, m, lanes)
     drain_writeback.launches += 1
     return out
 

@@ -20,6 +20,7 @@ from repro_torch.kernels.flash_decode import ops as FD  # noqa: E402
 from repro_torch.kernels.fused_turn import ops as FT  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as RN  # noqa: E402
 from repro_torch.kernels.selective_flush import ops as SF  # noqa: E402
+from repro_torch.kernels import timing  # noqa: E402
 from repro_torch.kernels.topk_router import ops as TR  # noqa: E402
 
 
@@ -83,6 +84,80 @@ def test_trip_plan_kernel_refuses_more_than_1024_lanes(cuda):
     args = [C.to_torch(x).to(cuda) for x in C.plan_inputs(1, 1025)]
     with pytest.raises(ValueError, match="1..1024"):
         FT.trip_plan(*args, None, remote_cap=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 64, 256])
+@pytest.mark.parametrize("name", sorted(timing.ONE_OP))
+def test_one_call_is_one_device_operation(cuda, name, n):
+    """Under torch.profiler one wrapper call at the kv_directory shapes of
+    n agents is one kernel record: no memset, no fill, no copy."""
+    call = next(c for c in timing.sim_calls(C, SF, FT, n, cuda)
+                if c["name"] == name)
+    call["fn"]()                          # build and load outside the trace
+    ops = timing.device_ops(call["fn"])
+    assert sum(ops.values()) == 1, ops
+    assert timing.ONE_OP[name] in next(iter(ops)), ops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 33, 64, 256])
+def test_trip_plan_without_remote_cap_never_reads_raddr(cuda, n):
+    """With remote_cap=False the kernel gets a null raddr: a read would
+    fault.  The plan equals its plain version's."""
+    args = [C.to_torch(x) for x in C.plan_inputs(n, n)]
+    got = FT.trip_plan(*(a.to(cuda) for a in args[:4]), None, None,
+                       remote_cap=False)
+    torch.cuda.synchronize()
+    want = FT.trip_plan_ref(*args[:4], None, None)
+    for g, x in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), x.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 33, 256])
+def test_simulator_kernel_outputs_keep_dtypes_and_shapes(cuda, n):
+    """TripPlan is [n] bool, [n] bool and a 0-d int32 (views of one
+    buffer); drain_writeback returns a fresh [nb, W] int32 bank."""
+    args = [C.to_torch(x).to(cuda) for x in C.plan_inputs(n, n)]
+    plan = FT.trip_plan(*args, None, remote_cap=True)
+    for mask in (plan.lmask, plan.rmask):
+        assert mask.dtype == torch.bool and mask.shape == (n,)
+    assert plan.wg.dtype == torch.int32 and plan.wg.shape == ()
+    nb, w, m = 2 * n, 16, 16 * n
+    l2, rows, dirty, idx = (C.to_torch(x).to(cuda)
+                            for x in C.dw_inputs(n, nb, w, m))
+    out = SF.drain_writeback(l2, rows, dirty, idx)
+    assert out.dtype == torch.int32 and out.shape == (nb, w)
+    assert out.data_ptr() != l2.data_ptr()
+
+
+@pytest.mark.cuda
+def test_simulator_kernels_are_bitwise_repeatable(cuda):
+    """The same inputs give the same bits call after call, whatever order
+    the owner map's atomics land in."""
+    k = next(i for i, (_, kw) in enumerate(C.DRAIN_CASES) if "hot" in kw)
+    dw = [C.to_torch(x).to(cuda)
+          for x in C.dw_inputs(k, **C.DRAIN_CASES[k][1])]
+    first = SF.drain_writeback(*dw).cpu().numpy()
+    j = next(i for i, c in enumerate(C.PLAN_CASES) if "ties" in c[1])
+    tp = [C.to_torch(x).to(cuda)
+          for x in C.plan_inputs(j, **C.PLAN_CASES[j][1])]
+    plan0 = [t.cpu().numpy() for t in FT.trip_plan(*tp, None,
+                                                   remote_cap=True)]
+    for _ in range(5):
+        np.testing.assert_array_equal(SF.drain_writeback(*dw).cpu().numpy(),
+                                      first)
+        for g, x in zip(FT.trip_plan(*tp, None, remote_cap=True), plan0):
+            np.testing.assert_array_equal(g.cpu().numpy(), x)
+
+
+@pytest.mark.cuda
+def test_drain_writeback_refuses_rows_wider_than_its_tile(cuda):
+    w = SF.MAX_WRITEBACK_WORDS + 1
+    args = [C.to_torch(x).to(cuda) for x in C.dw_inputs(0, 2, w, 3)]
+    with pytest.raises(ValueError, match="W <="):
+        SF.drain_writeback(*args)
 
 
 def _bits(t: torch.Tensor) -> np.ndarray:

@@ -19,6 +19,7 @@ from repro.kernels.fused_turn.kernel import (  # noqa: E402
 from repro.kernels.fused_turn.ref import BIG, plane_commit_ref  # noqa: E402
 from repro.kernels.selective_flush.kernel import (  # noqa: E402
     drain_writeback_pallas)
+from repro_torch.kernels import cases as C  # noqa: E402
 from repro_torch.kernels.cases import (dw_inputs, pc_inputs,  # noqa: E402
                                        plan_inputs)
 from repro_torch.kernels.cases import to_torch as _t  # noqa: E402
@@ -48,6 +49,25 @@ def test_drain_writeback_matches_pallas(nb, w, m, dup, pad, oor):
     got = SF.drain_writeback(_t(l2), _t(rows), _t(dirty), _t(idx))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert SF.drain_writeback.launches == 0   # CPU tensors: plain version
+
+
+# the on-card cases whose bank spans many of the kernel's row tiles; the
+# seed is the case's index in DRAIN_CASES, as on the card
+TILE_CASES = [k for k, (_, kw) in enumerate(C.DRAIN_CASES) if "hot" in kw]
+
+
+@pytest.mark.parametrize("k", TILE_CASES,
+                         ids=[C.DRAIN_CASES[k][0] for k in TILE_CASES])
+def test_drain_writeback_past_one_tile_matches_pallas(k):
+    """Duplicates on both sides of each tile edge, pads and out-of-range
+    rows: the last entry with the word dirty wins across the whole bank."""
+    l2, rows, dirty, idx = dw_inputs(k, **C.DRAIN_CASES[k][1])
+    assert {766, 767, 768, 769} <= set(idx.tolist())
+    want = drain_writeback_pallas(jnp.asarray(l2), jnp.asarray(rows),
+                                  jnp.asarray(dirty), jnp.asarray(idx),
+                                  interpret=True)
+    got = SF.drain_writeback(_t(l2), _t(rows), _t(dirty), _t(idx))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_drain_writeback_bit31_last_writer_wins():
@@ -160,3 +180,24 @@ def test_trip_plan_serial_fallback_is_one_hot():
     np.testing.assert_array_equal(got.lmask.numpy(), np.asarray(want.lmask))
     assert int(got.wg) == int(want.wg) == 1
     assert got.lmask.numpy().tolist() == [False, True, False, False]
+
+
+# the on-card cases with clocks tied at the minimum (+0.0 and -0.0, or all
+# equal) at one warp and just past it; the seed is the index in PLAN_CASES
+TIE_CASES = [k for k, c in enumerate(C.PLAN_CASES) if "ties" in c[1]]
+
+
+@pytest.mark.parametrize("k", TIE_CASES,
+                         ids=[C.PLAN_CASES[k][0] for k in TIE_CASES])
+def test_trip_plan_ties_match_pallas(k):
+    """-0.0 == +0.0 as floats: the first index holding the minimum wins
+    whatever its sign, as in the Pallas kernel's float compares."""
+    _, kw, remote_cap, fenced = C.PLAN_CASES[k]
+    clocks, can_l, can_r, bound, raddr = plan_inputs(k, **kw)
+    if kw["ties"] == "signed_zero":
+        assert np.signbit(clocks[clocks == 0]).any()
+    got, want = _plan_pair(clocks, can_l, can_r, bound, raddr,
+                           C.horizon(clocks, fenced), remote_cap)
+    np.testing.assert_array_equal(got.lmask.numpy(), np.asarray(want.lmask))
+    np.testing.assert_array_equal(got.rmask.numpy(), np.asarray(want.rmask))
+    assert int(got.wg) == int(want.wg)
