@@ -11,13 +11,27 @@ Phases, each fatal on failure:
   3. each kernel against its plain PyTorch version on the card, at the
      main path's shapes and at the edge cases (duplicates, pads,
      out-of-range indices, dirty bit 31, remote_cap, fences, empty
-     masks), bitwise;
-  4. the main path: kv_directory through `run_cell` with every launch
-     count set to 0 first, held bitwise against the JAX reference's
-     golden counters (`src/repro_torch/golden/kv_directory.json`):
-     n=64 srsp/rsp/baseline on the fused engine at seeds 0 and 4, n=64
-     srsp on the serial and batched engines, n=256 srsp fused; each
-     cell's `steady_s`; every kernel must have launched;
+     masks), bitwise; drain_writeback under packed and under bool masks
+     (its REPRO_NO_PACK=1 instance, `drain_writeback_bool`);
+  4. the main path: the simulator's workloads through `run_cell` with
+     every launch count set to 0 first, held bitwise (every counter,
+     `events`, `check_ok`, `check_fails`) against the JAX reference's
+     golden files (`src/repro_torch/golden/<workload>.json`):
+     kv_directory n=64 srsp/rsp/baseline on the fused engine at seeds 0
+     and 4, n=64 srsp on the serial and batched engines, n=256 srsp
+     fused; reader_lock, producer_consumer and producer_consumer_mc at
+     n=64 srsp/rsp/baseline fused, srsp batched, and n=16 srsp serial,
+     rsp/baseline fused and the scope_only staleness demo (check red);
+     each cell's `steady_s` and launches per run; every kernel must have
+     launched.  Then one fused producer_consumer_mc srsp n=64 run
+     records the size of each co-scheduled remote batch: some must hold
+     two or more drains.  Then the bool metadata layout: a child process
+     with REPRO_NO_PACK=1 runs kv_directory and the three workloads at
+     n=64 srsp seed 4 fused, held to the same golden cells, with the
+     launch counts set to 0 first: the bool drain kernel and trip_plan
+     must launch (bool planes take plane_commit's plain version, as in
+     the reference), the packed drain kernel must not; the child's
+     failure fails the run;
   5. per kernel at the n=64 shapes and at n=256 (`fuse_ab`'s): device
      time per call of the kernel and of its plain version (CUDA graph
      replay timed with CUDA events, `repro_torch.kernels.timing`), eager
@@ -25,9 +39,9 @@ Phases, each fatal on failure:
      take (bytes over 3.35 TB/s, or operations over 67 TOP/s), the
      launches of phase 4, and the device operations one call makes under
      torch.profiler: exactly one kernel record, no memset or fill, for
-     drain_writeback and trip_plan;
+     both drain_writeback instances and trip_plan;
   6. the device's busy time and idle share over one fused n=64 srsp run
-     (torch.profiler);
+     of kv_directory and of producer_consumer_mc (torch.profiler);
   7. the serving path of granite-moe-1b-a400m (`repro_torch.serve`):
      (1) the golden config (full width, 2 layers, float32, numpy
      weights) teacher-forced on `golden/granite_moe_serve.json`'s tokens,
@@ -91,14 +105,30 @@ GOLDEN_TOL = 1e-3               # float32 logits, card vs the JAX CPU run
 BF16_MARGIN = 0.125             # 8 bf16 ulps of logits of size 2-4
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW = 4, 512, 32
 T = None                        # repro_torch.kernels.timing, set by main
-CELLS = ([(s, N_MAIN, seed, "fused") for seed in (0, 4)
-          for s in ("srsp", "rsp", "baseline")]
-         + [("srsp", N_MAIN, 4, "serial"), ("srsp", N_MAIN, 4, "batched"),
-            ("srsp", 256, 4, "fused")])
+# phase 4: (workload, scenario, n_agents, seed, engine); the lock and
+# queue workloads run every cell of their golden files
+KV_CELLS = ([("kv_directory", s, N_MAIN, seed, "fused") for seed in (0, 4)
+             for s in ("srsp", "rsp", "baseline")]
+            + [("kv_directory", "srsp", N_MAIN, 4, "serial"),
+               ("kv_directory", "srsp", N_MAIN, 4, "batched"),
+               ("kv_directory", "srsp", 256, 4, "fused")])
+LOCK_QUEUE = ("reader_lock", "producer_consumer", "producer_consumer_mc")
+# phase 6's cells: the profiler's cost grows with a run's kernel records,
+# so reader_lock and producer_consumer, the two runs with the most, stay
+# out and the run keeps within half its time limit
+PROFILED = ("kv_directory", "producer_consumer_mc")
+# the bool-layout child's cells
+BOOL_CELLS = [(w, "srsp", N_MAIN, 4, "fused")
+              for w in ("kv_directory",) + LOCK_QUEUE]
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def phase(t_start: float, msg: str) -> None:
+    """A phase's header, with the seconds since the run started."""
+    log(f"{msg}  [at {time.perf_counter() - t_start:.1f} s]")
 
 
 def nvidia_smi() -> str:
@@ -134,18 +164,22 @@ def check_kernels(torch, C, SF, FT) -> dict:
     def cpu(xs):
         return [C.to_torch(x) for x in xs]
 
-    errs = {"drain_writeback": 0.0, "plane_commit": 0.0, "trip_plan": 0.0}
-    for k, (name, kw) in enumerate(C.DRAIN_CASES):
-        xs = C.dw_inputs(k, **kw)
-        got = SF.drain_writeback(*on(xs))
-        want_dev = SF.drain_writeback_ref(*on(xs))
-        want_cpu = SF.drain_writeback_ref(*cpu(xs))
-        torch.cuda.synchronize()
-        e = max(max_abs_err(got, want_dev), max_abs_err(got, want_cpu))
-        log(f"  drain_writeback {name}: max_abs_err={e}")
-        if e != 0.0:
-            raise AssertionError(f"drain_writeback {name} disagrees")
-        errs["drain_writeback"] = max(errs["drain_writeback"], e)
+    errs = {"drain_writeback": 0.0, "drain_writeback_bool": 0.0,
+            "plane_commit": 0.0, "trip_plan": 0.0}
+    for kernel, fn, bool_mask in (
+            ("drain_writeback", SF.drain_writeback, False),
+            ("drain_writeback_bool", SF.drain_writeback_bool, True)):
+        for k, (name, kw) in enumerate(C.DRAIN_CASES):
+            xs = C.dw_inputs(k, **kw, bool_mask=bool_mask)
+            got = fn(*on(xs))
+            want_dev = SF.drain_writeback_ref(*on(xs))
+            want_cpu = SF.drain_writeback_ref(*cpu(xs))
+            torch.cuda.synchronize()
+            e = max(max_abs_err(got, want_dev), max_abs_err(got, want_cpu))
+            log(f"  {kernel} {name}: max_abs_err={e}")
+            if e != 0.0:
+                raise AssertionError(f"{kernel} {name} disagrees")
+            errs[kernel] = max(errs[kernel], e)
     for k, (name, kw) in enumerate(C.COMMIT_CASES):
         xs = C.pc_inputs(k, **kw)
         got = FT.plane_commit(*on(xs))
@@ -192,38 +226,132 @@ def bits_equal(torch, a, b) -> bool:
     return torch.equal(a.cpu().view(view), b.cpu().view(view))
 
 
-def run_main_path(torch, golden, launch_counters) -> list:
-    """Phase 4: the cells through `run_cell`, checked against golden."""
+def load_golden(workload: str) -> dict:
+    with open(os.path.join(ROOT, "src", "repro_torch", "golden",
+                           f"{workload}.json")) as f:
+        return json.load(f)
+
+
+def main_cells() -> list:
+    """Phase 4's cells: kv_directory's, then every golden cell of the
+    lock and queue workloads."""
+    return KV_CELLS + [(w, c["scenario"], c["n_agents"], c["seed"],
+                        c["engine"])
+                       for w in LOCK_QUEUE for c in load_golden(w)["cells"]]
+
+
+def golden_cell(doc, scenario, n, seed, engine) -> dict:
+    """The golden cell of this engine, else the cell's fused run (the
+    engines' counters are equal; kv_directory's file holds fused runs)."""
+    cells = [c for c in doc["cells"] if (c["scenario"], c["n_agents"],
+                                         c["seed"]) == (scenario, n, seed)]
+    return next((c for c in cells if c["engine"] == engine), cells[0])
+
+
+def run_cells(cells, launch_counters) -> list:
+    """The cells through `run_cell` on the card, each held to its golden
+    cell; launch counts set to 0 first.  Raises on any difference."""
     from repro_torch.workloads import sweep
+    goldens = {w: load_golden(w) for w in {c[0] for c in cells}}
     for f in launch_counters:
         f.launches = 0
     rows = []
-    for scenario, n, seed, engine in CELLS:
+    for workload, scenario, n, seed, engine in cells:
         before = [f.launches for f in launch_counters]
-        row = sweep.run_cell("kv_directory", scenario, n, seed, engine,
+        row = sweep.run_cell(workload, scenario, n, seed, engine,
                              device="cuda")
         # run_cell runs the cell twice (warm-up, timed): launches per run
         row["launches_per_run"] = {
             f.__name__: (f.launches - b) // 2
             for f, b in zip(launch_counters, before)}
-        ref = next(c for c in golden["cells"]
-                   if (c["scenario"], c["n_agents"], c["seed"])
-                   == (scenario, n, seed))
+        ref = golden_cell(goldens[workload], scenario, n, seed, engine)
+        ctx = f"{workload} {scenario} n={n} seed={seed} {engine}"
         for key in ("events", "check_ok", "check_fails"):
             if row[key] != ref[key]:
-                raise AssertionError(f"{scenario} n={n} seed={seed} "
-                                     f"{engine}: {key} {row[key]} != "
+                raise AssertionError(f"{ctx}: {key} {row[key]} != "
                                      f"{ref[key]}")
         if row["counters"] != ref["counters"]:
-            raise AssertionError(f"{scenario} n={n} seed={seed} {engine}: "
-                                 f"counters {row['counters']} != golden "
-                                 f"{ref['counters']}")
-        log(f"  kv_directory {scenario:8s} n={n:3d} seed={seed} "
+            raise AssertionError(f"{ctx}: counters {row['counters']} != "
+                                 f"golden {ref['counters']}")
+        log(f"  {workload:20s} {scenario:10s} n={n:3d} seed={seed} "
             f"{engine:7s} makespan={row['makespan']} events={row['events']}"
             f" check_ok={row['check_ok']} steady_s={row['steady_s']} "
             f"launches/run={row['launches_per_run']}")
         rows.append(row)
     return rows
+
+
+def remote_batches() -> dict:
+    """Phase 4: one fused producer_consumer_mc srsp n=64 seed 4 run with
+    each co-scheduled remote batch's size recorded ({size: trips}); it
+    must hold a batch of two or more drains and end on the golden
+    counters."""
+    import dataclasses
+
+    from repro_torch import workloads
+    from repro_torch.workloads import harness
+    bench = workloads.get("producer_consumer_mc").build(
+        "srsp", N_MAIN, seed=4, device="cuda")
+    sizes = {}
+
+    def turn_b(wl, s, mask, *ops):
+        k = int(mask.sum())
+        sizes[k] = sizes.get(k, 0) + 1
+        return bench.wl.remote_turn_b(wl, s, mask, *ops)
+
+    wl = dataclasses.replace(bench.wl, remote_turn_b=turn_b)
+    final = harness.run_fused(wl, bench.state)
+    ref = golden_cell(load_golden("producer_consumer_mc"), "srsp", N_MAIN,
+                      4, "fused")
+    if harness.counters_dict(final.store) != ref["counters"]:
+        raise AssertionError("the recorded producer_consumer_mc run left "
+                             "the golden counters")
+    log(f"  producer_consumer_mc srsp n={N_MAIN} fused: co-scheduled remote "
+        f"batches by size {dict(sorted(sizes.items()))}")
+    if max(sizes, default=0) < 2:
+        raise AssertionError(f"no remote batch held two drains: {sizes}")
+    return {"cell": f"producer_consumer_mc srsp n={N_MAIN} seed=4 fused",
+            "batches_by_size": {str(k): v for k, v in sorted(sizes.items())}}
+
+
+def bool_layout_child(torch, SF, FT) -> int:
+    """The bool layout's cells, run in a child process with
+    REPRO_NO_PACK=1: the golden cells on bool planes, the launch counts
+    set to 0 just before and read just after, one JSON line last."""
+    from repro_torch.core import protocol as P
+    if P.PACKED:
+        raise AssertionError("the child needs REPRO_NO_PACK=1")
+    counters = (SF.drain_writeback, SF.drain_writeback_bool,
+                FT.plane_commit, FT.trip_plan)
+    rows = run_cells(BOOL_CELLS, counters)
+    launches = {f.__name__: f.launches for f in counters}
+    if not (launches["drain_writeback_bool"] and launches["trip_plan"]) \
+            or launches["drain_writeback"]:
+        raise AssertionError(f"bool layout launches {launches}: want the "
+                             f"bool drain kernel and trip_plan, no packed "
+                             f"drain")
+    print(json.dumps({"rows": rows, "launches": launches}))
+    return 0
+
+
+def run_bool_layout() -> dict:
+    """Phase 4, the bool layout: this script in a child process with
+    REPRO_NO_PACK=1 (the layout is read once at import).  Its log lines
+    are echoed; a nonzero exit fails the run."""
+    env = dict(os.environ, REPRO_NO_PACK="1")
+    out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--bool-layout-child"], env=env,
+                         capture_output=True, text=True, timeout=600)
+    lines = out.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(f"  [bool] {line.strip()}")
+    if out.returncode != 0:
+        raise AssertionError(f"the bool-layout child failed "
+                             f"({out.returncode}):\n{out.stdout[-4000:]}\n"
+                             f"{out.stderr[-4000:]}")
+    res = json.loads(lines[-1])
+    log(f"    launches in the bool-layout run: {res['launches']}")
+    return res
 
 
 def bound(bytes_moved: float, ops: float, ops_per_s=OPS_PER_S) -> tuple:
@@ -235,18 +363,21 @@ def bound(bytes_moved: float, ops: float, ops_per_s=OPS_PER_S) -> tuple:
 # the TPU kernel each of the simulator's kernels replaces
 SIM_REPLACES = {
     "drain_writeback": "src/repro/kernels/selective_flush/kernel.py:93",
+    "drain_writeback_bool": "src/repro/kernels/selective_flush/kernel.py:63",
     "plane_commit": "src/repro/kernels/fused_turn/kernel.py:138",
     "trip_plan": "src/repro/kernels/fused_turn/kernel.py:94",
 }
+# the bool instance is a template instance of the packed kernel's source
+SIM_SOURCES = {"drain_writeback_bool": "drain_writeback"}
 
 
 def measure(torch, C, SF, FT, errs, launches) -> list:
-    """Phase 5, the simulator's kernels at the kv_directory shapes of
-    n=64 (the entry) and n=256 (with n=64 in `by_shape`): device time per
-    call of the kernel and of its plain version, eager time of both, the
-    bound, and the device operations one call makes under torch.profiler
-    (`T.device_ops`), which must be exactly one kernel record for the
-    `T.ONE_OP` kernels."""
+    """Phase 5, the simulator's kernels (both drain_writeback instances)
+    at the kv_directory shapes of n=64 (the entry) and n=256 (with n=64
+    in `by_shape`): device time per call of the kernel and of its plain
+    version, eager time of both, the bound, and the device operations
+    one call makes under torch.profiler (`T.device_ops`), which must be
+    exactly one kernel record for the `T.ONE_OP` kernels."""
     dev = torch.device("cuda")
     shapes = {}
     for n in T.SIM_NS:
@@ -269,31 +400,34 @@ def measure(torch, C, SF, FT, errs, launches) -> list:
                                      f"made {ops}, want one kernel")
             shapes.setdefault(name, []).append(rec)
     return [{"name": name, "route": "cuda",
-             "source": f"src/repro_torch/csrc/{name}.cu",
+             "source": f"src/repro_torch/csrc/"
+                       f"{SIM_SOURCES.get(name, name)}.cu",
              "replaces": SIM_REPLACES[name], "launches": launches[name],
              "max_abs_err": errs[name], "library_ms": None}
             | recs[0] | {"by_shape": recs}
             for name, recs in shapes.items()]
 
 
-def profile_cell(torch, steady_s: float) -> dict:
-    """Phase 6: device busy time of one fused n=64 srsp run, from
-    torch.profiler's CUDA kernel records, against the unprofiled
-    `steady_s` of that cell (phase 4): the device's idle share."""
+def profile_cell(torch, workload: str, steady_s: float) -> dict:
+    """Phase 6: device busy time of one fused n=64 srsp seed 4 run of
+    `workload`, from torch.profiler's CUDA kernel records, against the
+    unprofiled `steady_s` of that cell (phase 4): the device's idle
+    share."""
     from repro_torch import workloads
     from repro_torch.workloads import harness
-    bench = workloads.get("kv_directory").build("srsp", N_MAIN, seed=4,
-                                                device="cuda")
+    bench = workloads.get(workload).build("srsp", N_MAIN, seed=4,
+                                          device="cuda")
     busy_s, kernels = device_busy(
         torch, lambda: harness.run_fused(bench.wl, bench.state))
     top = sorted(kernels, key=_dev_us, reverse=True)[:8]
-    rec = {"cell": f"kv_directory srsp n={N_MAIN} seed=4 fused",
+    rec = {"cell": f"{workload} srsp n={N_MAIN} seed=4 fused",
            "device_busy_s": busy_s, "steady_s": steady_s,
            "idle_share": 1.0 - busy_s / steady_s,
            "kernel_launches": sum(e.count for e in kernels),
            "top": [{"name": e.key[:60], "count": e.count,
                     "device_ms": _dev_us(e) / 1e3} for e in top]}
-    log(f"  device busy {busy_s:.4f} s of steady {steady_s:.4f} s: "
+    log(f"  {rec['cell']}: device busy {busy_s:.4f} s of steady "
+        f"{steady_s:.4f} s: "
         f"idle share {rec['idle_share']:.4f}; "
         f"{rec['kernel_launches']} kernel launches")
     for t in rec["top"]:
@@ -432,17 +566,10 @@ def measure_serving(torch, C, ops, errs, prompt_lens) -> list:
 
 def device_busy(torch, fn) -> tuple:
     """(device busy seconds, CUDA kernel records) of one call of `fn`
-    under torch.profiler, from its CUDA kernel records.  Raises when the
-    profiler recorded no device time."""
+    under torch.profiler (`T.trace`), from its CUDA kernel records.
+    Raises when the profiler recorded no device time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in T.trace(fn) if e.device_type == DeviceType.CUDA]
     busy_s = sum(_dev_us(e) for e in kernels) / 1e6
     if not busy_s:
         raise AssertionError("torch.profiler recorded no device time: the "
@@ -781,6 +908,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write every record as JSON to this path")
+    ap.add_argument("--bool-layout-child", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -803,6 +932,8 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
         return 2
+    if args.bool_layout_child:
+        return bool_layout_child(torch, SF, FT)
     t_start = time.perf_counter()
 
     smi = nvidia_smi()
@@ -824,35 +955,44 @@ def main(argv=None) -> int:
 
     serve_ops = {"rmsnorm": RN, "flash_attention": FA,
                  "flash_decode": FD, "topk_router": TR}
-    log("[3] kernels against their plain versions on the card")
+    phase(t_start, "[3] kernels against their plain versions on the card")
     errs = check_kernels(torch, C, SF, FT)
+    phase(t_start, "[3] the serving kernels")
     errs.update(check_serving_kernels(torch, C, serve_ops))
 
-    log("[4] main path: kv_directory through run_cell")
-    with open(os.path.join(ROOT, "src", "repro_torch", "golden",
-                           "kv_directory.json")) as f:
-        golden = json.load(f)
+    phase(t_start, "[4] main path: the simulator's workloads through "
+                   "run_cell")
     counters = (SF.drain_writeback, FT.plane_commit, FT.trip_plan)
-    rows = run_main_path(torch, golden, counters)
+    cells = main_cells()
+    rows = run_cells(cells, counters)
     launches = {f.__name__: f.launches for f in counters}
     log(f"    launches on the main path: {launches}")
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the main path never launched: "
                              f"{launches}")
+    phase(t_start, "[4] co-scheduled remote batches")
+    batches = remote_batches()
+    phase(t_start, "[4] the bool metadata layout, REPRO_NO_PACK=1 in a "
+                   "child process")
+    bool_run = run_bool_layout()
+    launches["drain_writeback_bool"] = \
+        bool_run["launches"]["drain_writeback_bool"]
 
-    log("[5] kernel times at the n=64 shapes and the serving shapes")
+    phase(t_start, "[5] kernel times at the n=64 shapes and the serving "
+                   "shapes")
     kernels = measure(torch, C, SF, FT, errs, launches)
     lens = [len(r.prompt) for r in serve_requests(
         granite_moe_1b.CONFIG.vocab)]
     kernels += measure_serving(torch, C, serve_ops, errs, lens)
 
-    log("[6] where the time goes: one fused n=64 srsp run under "
-        "torch.profiler")
-    prof = profile_cell(torch, rows[CELLS.index(("srsp", N_MAIN, 4,
-                                                 "fused"))]["steady_s"])
+    phase(t_start, "[6] where the time goes: one fused n=64 srsp run "
+                   "under torch.profiler")
+    prof = [profile_cell(torch, w, rows[cells.index((
+        w, "srsp", N_MAIN, 4, "fused"))]["steady_s"])
+        for w in PROFILED]
 
-    log("[7] serving path: granite-moe-1b-a400m through "
-        "repro_torch.serve.engine")
+    phase(t_start, "[7] serving path: granite-moe-1b-a400m through "
+                   "repro_torch.serve.engine")
     counters = [RN.rmsnorm, FA.flash_attention, FD.flash_decode,
                 TR.topk_router]
     serve = serve_path(torch, counters)
@@ -860,8 +1000,8 @@ def main(argv=None) -> int:
         if rec["launches"] is None:
             rec["launches"] = serve["launches"][rec["name"]]
 
-    log("[8] cross-pod delta sync: make_pod_sync, 4 pods stacked on the "
-        "card")
+    phase(t_start, "[8] cross-pod delta sync: make_pod_sync, 4 pods "
+                   "stacked on the card")
     sync_recs, flush_entry = delta_sync_path(torch, SF)
     kernels.append(flush_entry)
     total_s = time.perf_counter() - t_start
@@ -872,6 +1012,8 @@ def main(argv=None) -> int:
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": smi, "build_s": build_s, "cells": rows,
+                       "remote_batches": batches,
+                       "bool_layout": bool_run,
                        "kernels": kernels, "profile": prof,
                        "serve": serve, "delta_sync": sync_recs,
                        "total_s": total_s,

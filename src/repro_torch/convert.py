@@ -1,12 +1,13 @@
 """State carry-over between the JAX package and the port.
 
-`from_numpy(tree, device)` turns a JAX state (a `Store`, `KVState`, a
-cross-pod `BankSyncState` or `EFState`, or any of their sub-tuples, with
-its leaves as numpy arrays) into the port's
-NamedTuple of the same name, field for field.  `to_numpy(tree)` is the
-inverse: the port's tree with numpy leaves.  The packed metadata planes
-are `uint32` in the JAX package and int32 bit patterns in the port;
-both directions reinterpret them bit for bit.  `leaves(tree)` flattens
+`from_numpy(tree, device)` turns a JAX state (a `Store`, a workload's
+state `KVState`, `RLState` or `PCState`, a cross-pod `BankSyncState` or
+`EFState`, or any of their sub-tuples, with its leaves as numpy arrays)
+into the port's NamedTuple of the same name, field for field.
+`to_numpy(tree)` is the inverse: the port's tree with numpy leaves.  The
+packed metadata planes are `uint32` in the JAX package and int32 bit
+patterns in the port; both directions reinterpret them bit for bit.  Bool
+planes (the `REPRO_NO_PACK=1` layout) are bool in both.  `leaves(tree)` flattens
 a tree of either package in field order, as `jax.tree.leaves` does.
 
 For the language models: `lm_params_to_torch(tree, device, dtype)` turns
@@ -26,11 +27,13 @@ from repro_torch.core import costmodel, protocol, sfifo, tables
 from repro_torch.distributed import compress, hier_sync
 from repro_torch.kernels import common
 from repro_torch.obs import trace
-from repro_torch.workloads import kv_directory
+from repro_torch.workloads import kv_directory, producer_consumer, \
+    reader_lock
 
 TYPES = {t.__name__: t for t in (
     protocol.Store, protocol.Lease, sfifo.SFifo, tables.LRTbl, tables.PATbl,
     costmodel.Counters, trace.TraceLog, kv_directory.KVState,
+    reader_lock.RLState, producer_consumer.PCState,
     hier_sync.BankSyncState, compress.EFState)}
 PLANES = ("wvalid", "wdirty")   # uint32 in JAX, int32 bit patterns here
 
@@ -48,7 +51,7 @@ def from_numpy(tree, device=None):
             out.append(from_numpy(x, device))
             continue
         x = np.asarray(x)
-        if name in PLANES:
+        if name in PLANES and x.dtype == np.uint32:
             x = x.view(np.int32)
         out.append(torch.as_tensor(x.copy(), device=device))
     return port(*out)
@@ -63,7 +66,8 @@ def to_numpy(tree):
             out.append(to_numpy(x))
             continue
         x = x.detach().cpu().numpy()
-        out.append(x.view(np.uint32) if name in PLANES else x)
+        out.append(x.view(np.uint32) if name in PLANES
+                   and x.dtype == np.int32 else x)
     return type(tree)(*out)
 
 

@@ -5,15 +5,22 @@ Block-major store over a shared L2 and N private L1 caches:
 
     Store.l2      [n_blocks, W]               int32 word values at L2
     Store.l1      [n_caches, n_blocks, W]     int32 per-cache values
-    Store.wvalid  [n_caches, n_blocks, L]     packed int32: copy readable
-    Store.wdirty  [n_caches, n_blocks, L]     packed int32: not written back
+    Store.wvalid  [n_caches, n_blocks, L]     flag plane: copy readable
+    Store.wdirty  [n_caches, n_blocks, L]     flag plane: not written back
     Store.fifo / lr / pa                      sFIFO, LR-TBL, PA-TBL, each
                                               with a leading cache axis
 
-with L = ceil(W/32) (`core/bitmask.py`).  Only the packed layout is
-ported.  Every op is `(store, ...) -> (store', ...)` and returns fresh
-tensors; nothing is updated in place, so an old store stays valid beside
-the new one, as in the JAX package.  Where JAX scatters with
+Two metadata layouts, as in the JAX package (DESIGN.md §8): packed int32
+bit patterns with L = ceil(W/32) (`core/bitmask.py`, the default), or
+bool planes with L = W under `REPRO_NO_PACK=1`, read once at import into
+`PACKED`.  Only `make_store` reads `PACKED`; every layout-aware helper
+(`_pl_clear`, `_rows_where`, `wvalid_bool`, `wdirty_bool`, and
+`plane_commit`/`drain_writeback` below them) takes its branch from the
+plane's dtype, so both layouts can run in one process.
+
+Every op is `(store, ...) -> (store', ...)` and returns fresh tensors;
+nothing is updated in place, so an old store stays valid beside the new
+one, as in the JAX package.  Where JAX scatters with
 `mode="drop"`, the port scatters into one spare row past the end and
 slices it off (`_scatter_rows`); only that row ever receives duplicate
 indices.  Where JAX branches with `lax.cond`, the port branches on the
@@ -29,6 +36,7 @@ harness, `trip_plan`.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, NamedTuple, Tuple
 
 import torch
@@ -44,6 +52,10 @@ INVALID = -1
 DRAIN_ALL = 2**30      # any seq is <= it: the whole sFIFO drains
 I32 = torch.int32
 F32 = torch.float32
+
+# Metadata layout, read once at import as in the JAX package: packed
+# int32 word bitmasks by default, bool [.., W] planes under REPRO_NO_PACK=1
+PACKED = os.environ.get("REPRO_NO_PACK", "0") != "1"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,7 +74,9 @@ class ProtoConfig:
 
     @property
     def meta_lanes(self) -> int:
-        return bitmask.n_lanes(self.block_words)
+        """Last-axis extent of the wvalid/wdirty planes in this layout."""
+        return bitmask.n_lanes(self.block_words) if PACKED \
+            else self.block_words
 
 
 class Lease(NamedTuple):
@@ -88,7 +102,8 @@ def make_store(cfg: ProtoConfig, device=None) -> Store:
     """Empty store on `device` (default: the GPU)."""
     dev = common.resolve_device(device)
     n, nb, w = cfg.n_caches, cfg.n_blocks, cfg.block_words
-    plane = torch.zeros((n, nb, cfg.meta_lanes), dtype=I32, device=dev)
+    plane = torch.zeros((n, nb, cfg.meta_lanes),
+                        dtype=I32 if PACKED else torch.bool, device=dev)
     return Store(
         l2=torch.zeros((nb, w), dtype=I32, device=dev),
         l1=torch.zeros((n, nb, w), dtype=I32, device=dev),
@@ -165,20 +180,39 @@ def _split(cfg, addrs):
 
 
 def _pl_clear(plane, lane, b, o, off):
-    """Per-lane flag clear: plane[lane, b, o] &= ~off."""
+    """Per-lane flag clear: flags[lane, b, o] &= ~off, in either layout."""
+    out = plane.clone()
+    if plane.dtype == torch.bool:
+        out[lane, b.long(), o.long()] = plane[lane, b.long(), o.long()] & ~off
+        return out
     w = bitmask.word_index(o).long()
     mask = torch.where(off, bitmask.word_bit(o), 0)
-    out = plane.clone()
     out[lane, b.long(), w] = plane[lane, b.long(), w] & ~mask
     return out
+
+
+def _rows_where(g, rows):
+    """Rows where g[...] else all-clear, in the rows' own dtype (a bare
+    `torch.where(g, rows, 0)` would promote bool rows to int64)."""
+    return torch.where(g[..., None], rows, rows.new_zeros(()))
 
 
 def _count(c: Counters, **kw) -> Counters:
     return c._replace(**{k: getattr(c, k) + v for k, v in kw.items()})
 
 
+def _plane_bool(plane, w: int) -> torch.Tensor:
+    return plane if plane.dtype == torch.bool else bitmask.unpack(plane, w)
+
+
+def wvalid_bool(st: Store) -> torch.Tensor:
+    """Boolean [n_caches, n_blocks, W] view of wvalid (tests/debug)."""
+    return _plane_bool(st.wvalid, st.l1.shape[-1])
+
+
 def wdirty_bool(st: Store) -> torch.Tensor:
-    return bitmask.unpack(st.wdirty, st.l1.shape[-1])
+    """Boolean [n_caches, n_blocks, W] view of wdirty (tests/debug)."""
+    return _plane_bool(st.wdirty, st.l1.shape[-1])
 
 
 def lease_stamp(st: Store, active, addrs) -> Store:
@@ -210,7 +244,7 @@ def b_writeback(cfg: ProtoConfig, st: Store, blks, guard
     safe = blks.clamp(min=0)
     rows = st.l1[lane, safe.long()]                         # [n, W]
     dirty_rows = st.wdirty[lane, safe.long()]               # [n, L]
-    sel = torch.where(g[:, None], dirty_rows, 0)
+    sel = _rows_where(g, dirty_rows)
     l2 = drain_writeback(st.l2, rows, sel, _where(g, safe, nb))
     # skipped lanes write their own row back unchanged (sel is 0 there)
     wdirty = st.wdirty.clone()
@@ -236,7 +270,7 @@ def b_drain(cfg: ProtoConfig, st: Store, pos, charge
     crow = _lanes(cfg, st)[:, None].expand(n, cap)
     rows = st.l1[crow, safe]                                # [n, cap, W]
     cur = st.wdirty[crow, safe]                             # [n, cap, L]
-    dirty_rows = torch.where(g[..., None], cur, 0)
+    dirty_rows = _rows_where(g, cur)
     lanes = dirty_rows.shape[-1]
     # cache-major flatten: later caches override earlier on collisions
     l2 = drain_writeback(st.l2, rows.reshape(n * cap, w),
@@ -259,7 +293,8 @@ def b_invalidate(cfg: ProtoConfig, st: Store, mask) -> Store:
     flash-invalidate, clear LR-TBL and PA-TBL."""
     mask = _bool(cfg, st, mask)
     st, _ = b_drain(cfg, st, _where(mask, DRAIN_ALL, INVALID), mask)
-    wvalid = torch.where(mask[:, None, None], 0, st.wvalid)
+    wvalid = torch.where(mask[:, None, None], st.wvalid.new_zeros(()),
+                         st.wvalid)
     lr = _mask_rows(mask, tables.lr_reset(st.lr), st.lr)
     pa = _mask_rows(mask, tables.pa_reset(st.pa), st.pa)
     fmask = mask.to(F32)

@@ -2,9 +2,13 @@
 // bank (the sFIFO drain / block writeback of the protocol engine).
 //
 // Replaces the Pallas TPU kernel `drain_writeback_pallas`
-// (src/repro/kernels/selective_flush/kernel.py:93, body
-// `_writeback_kernel_packed` :75).  That kernel sorts the index list and
-// walks a sequential grid so duplicate destinations merge in list order.
+// (src/repro/kernels/selective_flush/kernel.py:93) in both of its bodies:
+// `_writeback_kernel_packed` (:75, a packed int32 lane mask [m, L],
+// L = ceil(W/32)) and `_writeback_kernel` (:63, a bool mask [m, W], one
+// byte a word: the REPRO_NO_PACK=1 layout).  One template serves both
+// (kBool); only how phase B reads a listed row's mask differs, and each has
+// its own C entry.  That kernel sorts the index list and walks a
+// sequential grid so duplicate destinations merge in list order.
 // Blocks on Hopper run in no order; here one launch does the whole merge,
 // with an owner map of priorities in shared memory:
 //
@@ -25,7 +29,11 @@
 //     priority i+1 with one atomicMax where its bit is set: distinct words,
 //     no conflict inside the instruction; shared-memory atomics are native
 //     on Hopper.  Max commutes: the last entry with the word dirty wins, as
-//     in the reference, whatever order the atomics land in.
+//     in the reference, whatever order the atomics land in.  Under a bool
+//     mask a pair is (entry, 32-word chunk) and no lane is loaded ahead:
+//     lane w of the warp reads byte 32*l + w of the listed row's mask (one
+//     coalesced 32-byte read, only for rows that land in the tile) and
+//     tests it != 0.
 //   * Phase C, after one barrier: out = owner ? rows[owner-1] : l2, in
 //     16-byte units where W % 4 == 0 and l2, rows and out are 16-byte
 //     aligned (one int4 load from rows when the unit's four owners agree),
@@ -38,11 +46,14 @@
 // from l2 or from the one row that owns it (nb*W*4 together), write the
 // output bank (nb*W*4), and read the packed mask (m*L*4) and the index
 // list (m*4): 4*(2*nb*W + m*L + m) bytes.  At n=64 (nb=128, W=16, L=1,
-// m=1024) that is 24,576 B, 0.0073 us at 3.35 TB/s.  Neither rate sets
-// the time at these sizes: the launch and the chain of two dependent
-// memory trips (the index list and lanes, read by every CTA at once, then
-// the owning rows) do, and on the CTAs that own the most-listed rows the
-// atomics that land on one word one after another.
+// m=1024) that is 24,576 B, 0.0073 us at 3.35 TB/s.  Under a bool mask the
+// mask is m*W bytes: 4*(2*nb*W + m) + m*W = 36,864 B at n=64, 0.011 us.
+// Neither rate sets the time at these sizes: the launch and the chain of
+// two dependent memory trips (the index list and lanes, read by every CTA
+// at once, then the owning rows) do, and on the CTAs that own the
+// most-listed rows the atomics that land on one word one after another.
+// The bool instance adds a third dependent trip, the listed row's mask
+// bytes, on the rows that land in a CTA's tile.
 #include <type_traits>
 
 #include "common.cuh"
@@ -57,16 +68,17 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWaveCtas = 132;                // the H100 SXM's SMs
 
 // The raw loads of kBatch (entry, lane) pairs p = p0 + t + k*kThreads:
-// each pair's destination idx[p / L] (-1 past the end) and its packed
-// lane dirty[p].  Straight-line and predicated, so every load of the
-// batch is in flight at once; nothing here waits for one.
+// each pair's destination idx[p / L] (-1 past the end) and, for a packed
+// mask, its lane dirty[p].  Straight-line and predicated, so every load of
+// the batch is in flight at once; nothing here waits for one.
 struct Batch {
   int dst[kBatch];
   uint32_t lane[kBatch];
 };
 
+template <bool kBool>
 __device__ __forceinline__ void load_batch(Batch& q,
-                                           const int32_t* __restrict__ dirty,
+                                           const void* __restrict__ dirty,
                                            const int32_t* __restrict__ idx,
                                            int p0, int pairs, int L) {
 #pragma unroll
@@ -75,14 +87,21 @@ __device__ __forceinline__ void load_batch(Batch& q,
     const bool live = p < pairs;
     const int i = L == 1 ? p : p / L;
     q.dst[k] = live ? idx[i] : -1;
-    q.lane[k] = live ? static_cast<uint32_t>(dirty[p]) : 0u;
+    if constexpr (!kBool) {
+      q.lane[k] = live ? static_cast<uint32_t>(
+                             static_cast<const int32_t*>(dirty)[p])
+                       : 0u;
+    }
   }
 }
 
 // Phase B for one batch, a warp at a time: each pair that lands in the
-// tile's rows [row0, row0 + rows_here) in turn, its 32 words of lane
-// p % L tested by the 32 lanes together (see the note above).
+// tile's rows [row0, row0 + rows_here) in turn, its 32 words of chunk
+// p % L tested by the 32 lanes together (see the note above): from the
+// packed lane, or from the bool mask's bytes.
+template <bool kBool>
 __device__ __forceinline__ void apply_batch(const Batch& q, int32_t* owner,
+                                            const void* __restrict__ dirty,
                                             int p0, int L, int W, int row0,
                                             int rows_here) {
   const int lane = threadIdx.x & 31;
@@ -94,13 +113,18 @@ __device__ __forceinline__ void apply_batch(const Batch& q, int32_t* owner,
       const int src = __ffs(todo) - 1;
       todo &= todo - 1u;
       const int r = __shfl_sync(kFull, row, src);
-      const uint32_t bits = __shfl_sync(kFull, q.lane[k], src);
       const int p = p0 - lane + src + k * kThreads;   // the pair of lane src
       const int i = L == 1 ? p : p / L;
       const int w = 32 * (p - i * L) + lane;
-      if (w < W && ((bits >> lane) & 1u)) {
-        atomicMax(owner + r * W + w, i + 1);
+      bool on;
+      if constexpr (kBool) {
+        on = w < W && static_cast<const uint8_t*>(
+                           dirty)[static_cast<long long>(i) * W + w] != 0;
+      } else {
+        const uint32_t bits = __shfl_sync(kFull, q.lane[k], src);
+        on = w < W && ((bits >> lane) & 1u);
       }
+      if (on) atomicMax(owner + r * W + w, i + 1);
     }
   }
 }
@@ -110,11 +134,11 @@ __device__ __forceinline__ long long row_of(int o, int W) {
   return static_cast<long long>(o - 1) * W;
 }
 
-template <bool kVec>
+template <bool kVec, bool kBool>
 __global__ void __launch_bounds__(kThreads, 1)
 drain_writeback_kernel(const int32_t* __restrict__ l2,
                        const int32_t* __restrict__ rows,
-                       const int32_t* __restrict__ dirty,
+                       const void* __restrict__ dirty,
                        const int32_t* __restrict__ idx,
                        int32_t* __restrict__ out, int nb, int W, int m,
                        int L, int R) {
@@ -142,7 +166,7 @@ drain_writeback_kernel(const int32_t* __restrict__ l2,
     if (u < units) keep[k] = l2u[u];
   }
   Batch q;
-  load_batch(q, dirty, idx, t, pairs, L);
+  load_batch<kBool>(q, dirty, idx, t, pairs, L);
   const Unit zero{};
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
@@ -153,10 +177,10 @@ drain_writeback_kernel(const int32_t* __restrict__ l2,
 
   // Phase B: priorities into the owner map, kBatch pairs at a time
   for (int p0 = t;;) {
-    apply_batch(q, owner, p0, L, W, row0, rows_here);
+    apply_batch<kBool>(q, owner, dirty, p0, L, W, row0, rows_here);
     p0 += kBatch * kThreads;
     if (p0 - t >= pairs) break;
-    load_batch(q, dirty, idx, p0, pairs, L);
+    load_batch<kBool>(q, dirty, idx, p0, pairs, L);
   }
   __syncthreads();
 
@@ -189,6 +213,30 @@ drain_writeback_kernel(const int32_t* __restrict__ l2,
   }
 }
 
+template <bool kBool>
+int launch(const void* l2, const void* rows, const void* dirty,
+           const void* idx, void* out, int nb, int W, int m, int L,
+           cudaStream_t s) {
+  if (W < 1 || W > kOwnerWords || nb < 1 || m < 0 || L != (W + 31) / 32
+      || static_cast<long long>(m) * L > INT32_MAX - kBatch * kThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // rows a CTA: the bank spread over one wave of CTAs, so each CTA's
+  // share of the atomics is small; at most what its owner map holds
+  const int R = min(kOwnerWords / W, repro_cdiv(nb, kWaveCtas));
+  const int grid = repro_cdiv(nb, R);
+  const bool vec = W % 4 == 0
+      && ((reinterpret_cast<uintptr_t>(l2) | reinterpret_cast<uintptr_t>(rows)
+           | reinterpret_cast<uintptr_t>(out)) & 15u) == 0;
+  auto kernel = vec ? drain_writeback_kernel<true, kBool>
+                    : drain_writeback_kernel<false, kBool>;
+  kernel<<<grid, kThreads, 0, s>>>(
+      static_cast<const int32_t*>(l2), static_cast<const int32_t*>(rows),
+      dirty, static_cast<const int32_t*>(idx), static_cast<int32_t*>(out),
+      nb, W, m, L, R);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // l2 [nb, W], rows [m, W], dirty [m, L] packed, idx [m], all int32 ->
@@ -197,23 +245,18 @@ REPRO_EXPORT int drain_writeback_launch(const void* l2, const void* rows,
                                         const void* dirty, const void* idx,
                                         void* out, int nb, int W, int m,
                                         int L, void* stream) {
-  if (W < 1 || W > kOwnerWords || nb < 1 || m < 0 || L != (W + 31) / 32
-      || static_cast<long long>(m) * L > INT32_MAX - kBatch * kThreads) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // rows a CTA: the bank spread over one wave of CTAs, so each CTA's
-  // share of the atomics is small; at most what its owner map holds
-  const int R = min(kOwnerWords / W, repro_cdiv(nb, kWaveCtas));
-  const int grid = repro_cdiv(nb, R);
-  const bool vec = W % 4 == 0
-      && ((reinterpret_cast<uintptr_t>(l2) | reinterpret_cast<uintptr_t>(rows)
-           | reinterpret_cast<uintptr_t>(out)) & 15u) == 0;
-  auto kernel = vec ? drain_writeback_kernel<true>
-                    : drain_writeback_kernel<false>;
-  kernel<<<grid, kThreads, 0, s>>>(
-      static_cast<const int32_t*>(l2), static_cast<const int32_t*>(rows),
-      static_cast<const int32_t*>(dirty), static_cast<const int32_t*>(idx),
-      static_cast<int32_t*>(out), nb, W, m, L, R);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(l2, rows, dirty, idx, out, nb, W, m, L,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// The same merge under a bool mask: dirty [m, W] bytes (0 or 1), the rest
+// as above.
+REPRO_EXPORT int drain_writeback_bool_launch(const void* l2,
+                                             const void* rows,
+                                             const void* dirty,
+                                             const void* idx, void* out,
+                                             int nb, int W, int m,
+                                             void* stream) {
+  return launch<true>(l2, rows, dirty, idx, out, nb, W, m, (W + 31) / 32,
+                      static_cast<cudaStream_t>(stream));
 }

@@ -35,12 +35,21 @@ def to_torch(x) -> torch.Tensor:
     return torch.from_numpy(x.view(np.int32) if x.dtype == np.uint32 else x)
 
 
-def dw_inputs(seed, nb, w, m, *, dup=True, pad=True, oor=False, hot=()):
+def unpack_bits(lanes, w):
+    """[..., L] uint32 lanes -> [..., w] bool flags (LSB first)."""
+    bits = (lanes[..., :, None] >> np.arange(32, dtype=np.uint32)) & 1
+    return bits.reshape(lanes.shape[:-1] + (-1,))[..., :w].astype(bool)
+
+
+def dw_inputs(seed, nb, w, m, *, dup=True, pad=True, oor=False, hot=(),
+              bool_mask=False):
     """drain_writeback (l2, rows, dirty, idx).  dup=False draws distinct
     destinations (the b_writeback shape); pads are -1; out-of-range
     destinations are >= nb.  `hot` rows take half the entries (before
     pads and out-of-range ones are planted): many duplicates of each,
-    e.g. on both sides of the kernel's tile edge."""
+    e.g. on both sides of the kernel's tile edge.  bool_mask=True gives
+    the same mask as [m, w] bool flags (the REPRO_NO_PACK=1 layout's
+    instance) in place of packed lanes."""
     rng = np.random.default_rng(seed)
     l2 = rng.integers(-2**31, 2**31, (nb, w), dtype=np.int64) \
         .astype(np.int32)
@@ -58,6 +67,8 @@ def dw_inputs(seed, nb, w, m, *, dup=True, pad=True, oor=False, hot=()):
         idx[rng.random(m) < 0.25] = -1
     if oor:
         idx[rng.random(m) < 0.15] = nb + rng.integers(0, 3)
+    if bool_mask:
+        dirty = unpack_bits(dirty, w)
     return l2, rows, dirty, idx
 
 

@@ -142,17 +142,19 @@ def library(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
-def launch(name: str, argtypes: list, device: torch.device, *args) -> None:
-    """Call `<name>_launch` of kernel `name`'s library on `device`'s
-    current stream and raise when it returns a nonzero
-    `cudaGetLastError()`.
+def launch(name: str, argtypes: list, device: torch.device, *args,
+           entry: str = None) -> None:
+    """Call `<entry>_launch` (default `<name>_launch`) of kernel `name`'s
+    library on `device`'s current stream and raise when it returns a
+    nonzero `cudaGetLastError()`.
 
     Pointer arguments come from `ptr()`; the kernel runs on the current
     stream after this returns.  PyTorch's caching allocator reuses a freed
     block only for work ordered after it on the same stream, so inputs
     and scratch the caller drops afterwards stay valid for the kernel."""
     lib = library(name)
-    fn = getattr(lib, f"{name}_launch")
+    entry = entry or name
+    fn = getattr(lib, f"{entry}_launch")
     if fn.argtypes is None:
         fn.argtypes = argtypes + [ctypes.c_void_p]     # ... stream
         fn.restype = ctypes.c_int
@@ -160,7 +162,7 @@ def launch(name: str, argtypes: list, device: torch.device, *args) -> None:
         torch.cuda.current_stream(device).cuda_stream))
     if err != 0:
         msg = lib.repro_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+        raise RuntimeError(f"{entry} kernel launch failed: {msg} ({err})")
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

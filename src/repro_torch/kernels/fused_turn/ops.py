@@ -7,9 +7,14 @@ which replace the Pallas TPU kernels `trip_plan_pallas`
 (src/repro/kernels/fused_turn/kernel.py:94) and `plane_commit_pallas`
 (:138).  The source notes give each kernel's design and its bound.
 
-`plane_commit` with `set_dirty=None` (the `b_load` shape) takes the plain
-version on every device, as in the JAX package (`fused_turn/ops.py:57`):
-the kernel covers the store shape only.
+`plane_commit` takes the plain version on every device in two cases, as
+the JAX package does (`fused_turn/ops.py:57-59`), and neither is a
+fallback from a failed launch:
+  * `set_dirty=None`, the `b_load` shape: the kernel covers the store
+    shape only;
+  * bool planes, the `REPRO_NO_PACK=1` layout: the reference never sends
+    them to its Pallas kernel, which takes packed lanes only, so the port
+    has no kernel for them either.
 """
 from __future__ import annotations
 
@@ -115,15 +120,27 @@ trip_plan.launches = 0
 def plane_commit_ref(wvalid, wdirty, b, o, set_valid, set_dirty):
     """Plain version: pre-op valid/dirty bits of word o[i] of block b[i]
     in lane i, then the set_valid / set_dirty bits ORed in.  Planes are
-    [n, nb, L] int32 bit patterns; `set_dirty` None leaves wdirty as it
-    is.  Returns (wvalid', wdirty', was_valid, was_dirty).
+    [n, nb, L] int32 bit patterns or [n, nb, W] bool flags; `set_dirty`
+    None leaves wdirty as it is.  Returns (wvalid', wdirty', was_valid,
+    was_dirty).
 
     As in the Pallas kernel, a block outside [0, nb) is clamped into it,
     and an offset outside the row's L lanes has an empty bit: its was_*
-    bits are False and it sets nothing."""
+    bits are False and it sets nothing.  The bool layout takes in-range
+    targets only, as the reference's does."""
     n, nb, lanes = wvalid.shape
     lane = torch.arange(n, device=wvalid.device)
     b = b.long().clamp(0, nb - 1)
+    if wvalid.dtype == torch.bool:
+        o = o.long()
+        was_valid = wvalid[lane, b, o]
+        was_dirty = wdirty[lane, b, o]
+        wvalid = wvalid.clone()
+        wvalid[lane, b, o] = was_valid | set_valid
+        if set_dirty is not None:
+            wdirty = wdirty.clone()
+            wdirty[lane, b, o] = was_dirty | set_dirty
+        return wvalid, wdirty, was_valid, was_dirty
     w = bitmask.word_index(o).long()
     in_row = (w >= 0) & (w < lanes)
     w = torch.where(in_row, w, 0)
@@ -163,9 +180,10 @@ def _commit_launch(wvalid, wdirty, b, o, set_valid, set_dirty):
 
 def plane_commit(wvalid, wdirty, b, o, set_valid, set_dirty):
     """Fused metadata-plane front end (`plane_commit_ref`'s contract);
-    returns fresh planes."""
-    if set_dirty is not None and common.on_cuda(wvalid, wdirty, b, o,
-                                                set_valid, set_dirty):
+    returns fresh planes.  The load shape and bool planes take the plain
+    version on every device (see the module note)."""
+    if set_dirty is not None and wvalid.dtype != torch.bool \
+            and common.on_cuda(wvalid, wdirty, b, o, set_valid, set_dirty):
         return _commit_launch(wvalid, wdirty, b, o, set_valid, set_dirty)
     return plane_commit_ref(wvalid, wdirty, b, o, set_valid, set_dirty)
 

@@ -9,9 +9,15 @@ scatter inverse, and the protocol engine's drain/writeback merge.
 * `selective_apply` scatters compacted rows back.  It is plain PyTorch
   on every device, as the JAX package leaves it to XLA's scatter.
 * `drain_writeback` merges drained L1 blocks into the L2 bank under a
-  packed per-word dirty mask (`protocol.b_drain`, `protocol.b_writeback`);
+  per-word dirty mask (`protocol.b_drain`, `protocol.b_writeback`);
   CUDA tensors launch `csrc/drain_writeback.cu`, which replaces
-  `drain_writeback_pallas` (kernel.py:93).
+  `drain_writeback_pallas` (kernel.py:93).  That Pallas kernel has two
+  bodies, picked by the mask's dtype, and so has the port: packed int32
+  lanes [m, ceil(W/32)] launch the packed instance
+  (`_writeback_kernel_packed`, kernel.py:75), a bool mask [m, W] (the
+  REPRO_NO_PACK=1 layout) goes through `drain_writeback_bool` to the
+  byte-mask instance (`_writeback_kernel`, kernel.py:63).  Each counts
+  its own launches.
 
 Each kernel wrapper dispatches by device (`kernels/common.py`): CPU
 tensors take the plain version `<name>_ref`.  The source notes give each
@@ -106,11 +112,12 @@ def drain_writeback_ref(l2: torch.Tensor, rows: torch.Tensor,
     Entries with indices outside [0, nb) write nothing.
 
     l2 [nb, W] int32; rows [m, W] int32; dirty [m, ceil(W/32)] int32
-    packed lanes; indices [m] int32."""
+    packed lanes or [m, W] bool; indices [m] int32."""
     nb, w = l2.shape
     m = indices.shape[0]
     g = (indices >= 0) & (indices < nb)
-    sel = bitmask.unpack(dirty, w) & g[:, None]
+    flags = dirty if dirty.dtype == torch.bool else bitmask.unpack(dirty, w)
+    sel = flags & g[:, None]
     prio = torch.where(sel, torch.arange(1, m + 1, dtype=I32,
                                          device=l2.device)[:, None], 0)
     dest = torch.where(g, indices, nb).long()[:, None].expand(m, w)
@@ -123,32 +130,60 @@ def drain_writeback_ref(l2: torch.Tensor, rows: torch.Tensor,
 
 
 def _launch(l2, rows, dirty, indices):
+    """Check the inputs and launch the instance of `dirty`'s dtype: the
+    packed entry takes the lane count, the bool entry derives it."""
     nb, w = l2.shape
     m = indices.shape[0]
-    lanes = dirty.shape[-1]
+    packed = dirty.dtype != torch.bool
     common.require(l2, "l2", I32, (nb, w))
     common.require(rows, "rows", I32, (m, w))
-    common.require(dirty, "dirty", I32, (m, bitmask.n_lanes(w)))
+    if packed:
+        common.require(dirty, "dirty", I32, (m, bitmask.n_lanes(w)))
+    else:
+        common.require(dirty, "dirty", torch.bool, (m, w))
     common.require(indices, "indices", I32, (m,))
     if w > MAX_WRITEBACK_WORDS:
         raise ValueError(f"drain_writeback kernel takes W <= "
                          f"{MAX_WRITEBACK_WORDS} words a block, got {w}")
     out = torch.empty_like(l2)
+    lanes = (dirty.shape[-1],) if packed else ()
     common.launch("drain_writeback", [ctypes.c_void_p] * 5
-                  + [ctypes.c_int] * 4, l2.device,
+                  + [ctypes.c_int] * (3 + len(lanes)), l2.device,
                   *(common.ptr(t) for t in (l2, rows, dirty, indices, out)),
-                  nb, w, m, lanes)
-    drain_writeback.launches += 1
+                  nb, w, m, *lanes,
+                  entry="drain_writeback" if packed
+                  else "drain_writeback_bool")
     return out
+
+
+def drain_writeback_bool(l2: torch.Tensor, rows: torch.Tensor,
+                         dirty: torch.Tensor, indices: torch.Tensor
+                         ) -> torch.Tensor:
+    """`drain_writeback` under a bool [m, W] mask: CUDA tensors launch the
+    byte-mask instance of `csrc/drain_writeback.cu`."""
+    if dirty.dtype != torch.bool:
+        raise ValueError(f"dirty: want a bool mask, got {dirty.dtype}")
+    if common.on_cuda(l2, rows, dirty, indices):
+        out = _launch(l2, rows, dirty, indices)
+        drain_writeback_bool.launches += 1
+        return out
+    return drain_writeback_ref(l2, rows, dirty, indices)
 
 
 def drain_writeback(l2: torch.Tensor, rows: torch.Tensor,
                     dirty: torch.Tensor, indices: torch.Tensor
                     ) -> torch.Tensor:
-    """Merged [nb, W] bank, a fresh tensor (see `drain_writeback_ref`)."""
+    """Merged [nb, W] bank, a fresh tensor (see `drain_writeback_ref`).
+    A bool mask goes to `drain_writeback_bool`; packed int32 lanes launch
+    the packed instance here."""
+    if dirty.dtype == torch.bool:
+        return drain_writeback_bool(l2, rows, dirty, indices)
     if common.on_cuda(l2, rows, dirty, indices):
-        return _launch(l2, rows, dirty, indices)
+        out = _launch(l2, rows, dirty, indices)
+        drain_writeback.launches += 1
+        return out
     return drain_writeback_ref(l2, rows, dirty, indices)
 
 
 drain_writeback.launches = 0
+drain_writeback_bool.launches = 0

@@ -1,15 +1,19 @@
 """Timing the port's kernels on the card, and the simulator kernels' A/B.
 
     python3 src/repro_torch/kernels/timing.py [--trees DIR ...] [--out PATH]
+    python3 src/repro_torch/kernels/timing.py --trace-misses ROUNDS
 
 Helpers that `chip_smoke.py` and `tests/test_torch_cuda.py` share:
 `device_ms` (device time per call: a CUDA graph of many calls replayed
 and timed with CUDA events), `eager_ms` (wall time per call as a host
-loop pays it, launch included) and `device_ops` (the device operations
-one call makes, from torch.profiler).  `sim_calls` gives the simulator's
-three kernels at the kv_directory shapes of n agents (nb = 2n bank rows
-of W=16 words, b_drain's m = 16n drained rows), with their bytes and
-operations.
+loop pays it, launch included), `trace` (torch.profiler's records of
+one call, with idle slack at both ends of the window) and `device_ops`
+(the device operations one call makes, from `trace`).  `sim_calls` gives the simulator's
+kernels at the kv_directory shapes of n agents (nb = 2n bank rows of
+W=16 words, b_drain's m = 16n drained rows), with their bytes and
+operations: `drain_writeback` under a packed mask and under a bool mask
+(its REPRO_NO_PACK=1 instance, where the checkout has it),
+`plane_commit`, and `trip_plan` without and with the remote co-schedule.
 
 As a script it times those kernels at n=64 and n=256 (device ms, eager
 ms, device operations a call), a line each, then all as one JSON line.
@@ -17,6 +21,9 @@ With `--trees`, it times each checkout's `src/` in a process of
 its own, in the order given (parent, change, change, parent compares two
 versions on one card); only the kernel wrappers and the case generators
 come from the checkout, so a checkout that predates this file works.
+`--trace-misses` counts the traces that come back with no CUDA-side
+record over ROUNDS rounds of chip_smoke.py phase 5's order, with no
+slack in the window and with TRACE_SLACK_S.
 This file imports nothing of the port at import time.
 """
 from __future__ import annotations
@@ -78,34 +85,72 @@ def eager_ms(fn, iters=200) -> float:
     return sorted(times)[len(times) // 2]
 
 
-TRACE_ATTEMPTS = 3
+TRACE_ATTEMPTS = 5
+# idle time at each end of a trace's window: with none, now and then a
+# short trace came back with the launch's CPU record and no CUDA-side one
+# ("Activity Buffer Request" in it), and the next traces often missed too
+# (`trace_misses` counts them)
+TRACE_SLACK_S = 0.005
 
 
-def device_ops(fn) -> dict:
-    """{record name: count} of the device operations one call of `fn`
-    makes, under torch.profiler: every CUDA-side record (kernels,
-    memsets, copies) and every cudaMemset* runtime call, so a memset
-    counts as an operation however the tracer files it.  A trace with
-    no CUDA-side record at all is a tracer miss (a call that launches
-    cannot make none), seen now and then on repeated profiles; it is
-    taken again, up to TRACE_ATTEMPTS times."""
+def trace(fn, attempts=TRACE_ATTEMPTS, slack_s=TRACE_SLACK_S) -> list:
+    """torch.profiler's key_averages() (CPU and CUDA) of one call of `fn`,
+    with `slack_s` seconds of idle time in the window before the call and
+    after its synchronize.  A trace with no CUDA-side record is a tracer
+    miss (a call that launches cannot make none) and is taken again, up
+    to `attempts` times; the last one is returned all the same."""
+    import time
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(TRACE_ATTEMPTS):
+    for _ in range(attempts):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(slack_s)
             fn()
             torch.cuda.synchronize()
-        ops = {}
-        for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA \
-                    or e.key.startswith("cudaMemset"):
-                ops[e.key] = ops.get(e.key, 0) + e.count
-        if ops:
+            time.sleep(slack_s)
+        recs = list(prof.key_averages())
+        if any(e.device_type == DeviceType.CUDA for e in recs):
             break
+    return recs
+
+
+def device_ops(fn, attempts=TRACE_ATTEMPTS) -> dict:
+    """{record name: count} of the device operations one call of `fn`
+    makes, from `trace`: every CUDA-side record (kernels, memsets,
+    copies) and every cudaMemset* runtime call, so a memset counts as an
+    operation however the tracer files it."""
+    from torch.autograd import DeviceType
+    ops = {}
+    for e in trace(fn, attempts):
+        if e.device_type == DeviceType.CUDA \
+                or e.key.startswith("cudaMemset"):
+            ops[e.key] = ops.get(e.key, 0) + e.count
     return ops
+
+
+def trace_misses(calls, rounds: int) -> dict:
+    """{slack: {call: one-attempt traces with no CUDA-side record}} over
+    `rounds` rounds of chip_smoke.py phase 5's order for each call (a
+    trace with no slack and one with TRACE_SLACK_S, in turns, then CUDA
+    graphs of the kernel and of its plain version, then an eager loop)."""
+    from torch.autograd import DeviceType
+    out = {0.0: {}, TRACE_SLACK_S: {}}
+    for r in range(rounds):
+        for call in calls:
+            key = f"{call['name']} {call['shape']}"
+            for slack in sorted(out, reverse=bool(r % 2)):
+                miss = not any(
+                    e.device_type == DeviceType.CUDA
+                    for e in trace(call["fn"], attempts=1, slack_s=slack))
+                out[slack][key] = out[slack].get(key, 0) + miss
+            device_ms(call["fn"])
+            device_ms(call["plain"])
+            eager_ms(call["fn"], iters=20)
+    return {str(k): v for k, v in out.items()}
 
 
 def sim_calls(C, SF, FT, n: int, device) -> list:
@@ -128,6 +173,14 @@ def sim_calls(C, SF, FT, n: int, device) -> list:
         # and written once, plus the packed mask and the index list
         bytes=4 * (2 * nb * w + m * dw[2].shape[1] + m),
         ops=m * w + nb * w))
+    if hasattr(SF, "drain_writeback_bool"):
+        dwb = on(C.dw_inputs(1, nb, w, m, bool_mask=True))
+        out.append(dict(
+            name="drain_writeback_bool", shape=f"nb={nb} W={w} m={m} bool",
+            fn=lambda: SF.drain_writeback_bool(*dwb),
+            plain=lambda: SF.drain_writeback_ref(*dwb),
+            # as above, with the mask as m*W bytes
+            bytes=4 * (2 * nb * w + m) + m * w, ops=m * w + nb * w))
     pc = on(C.pc_inputs(1, n, nb, w))
     words = pc[0].numel()
     out.append(dict(
@@ -141,6 +194,12 @@ def sim_calls(C, SF, FT, n: int, device) -> list:
         fn=lambda: FT.trip_plan(*tp, None, remote_cap=False),
         plain=lambda: FT.trip_plan_ref(*tp[:4], None, None),
         bytes=n * (4 + 1 + 1 + 4) + 2 * n + 4, ops=16 * n))
+    # with the remote co-schedule: raddr read, the n x n address dedup
+    out.append(dict(
+        name="trip_plan", shape=f"n={n} remote_cap=True",
+        fn=lambda: FT.trip_plan(*tp, None, remote_cap=True),
+        plain=lambda: FT.trip_plan_ref(*tp, None),
+        bytes=n * (4 + 1 + 1 + 4 + 4) + 2 * n + 4, ops=16 * n + 4 * n * n))
     return out
 
 
@@ -148,6 +207,7 @@ SIM_NS = (64, 256)
 # the simulator kernels whose call is one device operation, by the name of
 # their __global__ function in torch.profiler's records
 ONE_OP = {"drain_writeback": "drain_writeback_kernel",
+          "drain_writeback_bool": "drain_writeback_kernel",
           "trip_plan": "trip_plan_kernel"}
 
 
@@ -179,15 +239,27 @@ def main(argv=None) -> int:
                          "this order (default: this one)")
     ap.add_argument("--one", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--trace-misses", type=int, default=0, metavar="ROUNDS",
+                    help="count torch.profiler's empty traces over ROUNDS "
+                         "rounds of phase 5's order at n=64, then exit")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("timing: no CUDA device", file=sys.stderr)
         return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    if args.trace_misses:
+        sys.path.insert(0, os.path.abspath(os.path.join(here, "..", "..")))
+        from repro_torch.kernels import cases as C
+        from repro_torch.kernels.fused_turn import ops as FT
+        from repro_torch.kernels.selective_flush import ops as SF
+        calls = sim_calls(C, SF, FT, 64, torch.device("cuda"))
+        print(json.dumps({"rounds": args.trace_misses, "misses_by_slack_s":
+                          trace_misses(calls, args.trace_misses)}))
+        return 0
     if args.one:
         print(json.dumps(time_tree(args.one)))
         return 0
-    here = os.path.dirname(os.path.abspath(__file__))
     trees = args.trees or [os.path.abspath(os.path.join(here, "..", "..",
                                                         ".."))]
     runs = []

@@ -2,8 +2,8 @@
 
 Each registered module implements
 `build(scenario, n_agents, seed=0, *, proto=None, device=None, **kw)
--> Bench` and `init_state(wl, seed, device)`.  The port registers
-`kv_directory` so far.
+-> Bench` and `init_state(wl, seed, device)`.  The port registers four
+of the reference's six: `worksteal` and `kv_serving` are not ported yet.
 """
 from __future__ import annotations
 
@@ -11,6 +11,9 @@ import importlib
 
 _MODULES = {
     "kv_directory": "repro_torch.workloads.kv_directory",
+    "producer_consumer": "repro_torch.workloads.producer_consumer",
+    "producer_consumer_mc": "repro_torch.workloads.producer_consumer_mc",
+    "reader_lock": "repro_torch.workloads.reader_lock",
 }
 
 

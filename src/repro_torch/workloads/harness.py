@@ -13,19 +13,31 @@ plus its static config and protocol op table,
   live(wl, s, *ops)             -> bool     loop guard
 
 over a NamedTuple state whose first field is the protocol `Store`.
+Optional remote-batching capability (DESIGN.md §9):
+
+  remote_turn_b(wl, s, mask, *ops) -> s'    one remote turn per masked
+                                            agent, in one set of ops
+  remote_addr(wl, s, *ops)  -> [n] i32      the L2 sync address of agent
+                                            i's next remote turn
 
 Engines, each the JAX engine trip for trip: `run_serial` (smallest clock
 acts next, ties to the lowest index), `run_batched` (every local turn
 that provably precedes every remote turn that could observe it) and
 `run_fused` (the batched schedule with the decision made by one
 `trip_plan` call and the serial local fallback folded into the same
-masked local turn, DESIGN.md §12).  Each `lax.while_loop`/`lax.cond`
-becomes a host loop or branch on a scalar read back from the device:
-one synchronisation per decision.
+masked local turn, DESIGN.md §12).  When the workload declares the
+remote-batching capability and its protocol `remote_batchable`, a trip
+with an empty local batch co-schedules every remote candidate that
+precedes every local candidate (clock-lex), minus any lane whose address
+collides with an earlier (clock, index) one, in one `remote_turn_b`; an
+empty remote batch falls back to one serial turn.  The batched engine
+computes that batch in plain torch, the fused engine in `trip_plan`'s
+remote branch.  Each `lax.while_loop`/`lax.cond` becomes a host loop or
+branch on a scalar read back from the device: one synchronisation per
+decision.
 
-Not ported yet: the remote co-scheduling branch (no ported workload
-declares `remote_turn_b`), the elastic engines and the vmapped `*_many`
-replica engines.
+Not ported yet: the elastic engines and the vmapped `*_many` replica
+engines.
 """
 from __future__ import annotations
 
@@ -94,6 +106,14 @@ class Workload:
     remote_turn: Callable
     remote_bound: Callable
     live: Callable
+    remote_turn_b: Callable = None   # masked multi-agent remote turn
+    remote_addr: Callable = None     # [n] i32 next-remote target address
+
+    @property
+    def remote_cap(self) -> bool:
+        """Remote turns of distinct addresses may share a trip."""
+        return self.remote_turn_b is not None \
+            and self.remote_addr is not None and self.proto.remote_batchable
 
 
 def one_hot(n: int, wg, device) -> torch.Tensor:
@@ -133,9 +153,32 @@ def run_serial(wl: Workload, state, *ops):
     return s
 
 
+def _lex_before(clocks, wgs, mask):
+    """Lanes whose (clock, index) precedes the first (clock, index) of
+    `mask`'s lanes: clock < min, or clock == min and index < argmin."""
+    mclk = torch.where(mask, clocks, BIG)
+    m = mclk.min()
+    j = mclk.argmin().to(torch.int32)
+    return (clocks < m) | ((clocks == m) & (wgs < j))
+
+
+def _remote_batch(wl: Workload, s, can_l, can_r, clocks, wgs, ops):
+    """The co-scheduled remote batch of a trip whose local batch is empty:
+    remote candidates before every local candidate, minus any lane whose
+    address collides with an earlier (clock, index) candidate's."""
+    r0 = can_r & _lex_before(clocks, wgs, can_l)
+    raddr = wl.remote_addr(wl, s, *ops)
+    collide = r0[:, None] & r0[None, :] & (raddr[:, None] == raddr[None, :])
+    earlier = (clocks[None, :] < clocks[:, None]) \
+        | ((clocks[None, :] == clocks[:, None])
+           & (wgs[None, :] < wgs[:, None]))
+    return r0 & ~(collide & earlier).any(dim=1)
+
+
 def _batched_trip(wl: Workload, s, can_l, can_r, ops):
-    """One `run_batched` trip: the local batch if nonempty, else one
-    serial turn."""
+    """One `run_batched` trip: the local batch if nonempty, else the
+    co-scheduled remote batch if the capability allows one and it is
+    nonempty, else one serial turn."""
     if not wl.has_remote:
         return wl.local_turn(wl, s, can_l, *ops)
     clocks_all = s.store.counters.cycles
@@ -143,15 +186,16 @@ def _batched_trip(wl: Workload, s, can_l, can_r, ops):
     wgs = torch.arange(n, dtype=torch.int32, device=clocks_all.device)
     wg_min = torch.where(can_l | can_r, clocks_all, BIG).argmin() \
         .to(torch.int32)
-    sclk = torch.where(can_r, clocks_all, BIG)
-    ms = sclk.min()
-    js = sclk.argmin().to(torch.int32)
     fence = torch.where(can_l, clocks_all + wl.remote_bound(wl, s, *ops),
                         BIG).min()
-    lex = (clocks_all < ms) | ((clocks_all == ms) & (wgs < js))
-    batch = can_l & lex & (clocks_all <= fence)
+    batch = can_l & _lex_before(clocks_all, wgs, can_r) \
+        & (clocks_all <= fence)
     if bool(batch.any()):
         return wl.local_turn(wl, s, batch, *ops)
+    if wl.remote_cap:
+        rbatch = _remote_batch(wl, s, can_l, can_r, clocks_all, wgs, ops)
+        if bool(rbatch.any()):
+            return wl.remote_turn_b(wl, s, rbatch, *ops)
     return _serial_turn(wl, s, wg_min, can_l, ops)
 
 
@@ -169,14 +213,20 @@ def run_batched(wl: Workload, state, *ops):
 def _fused_trip(wl: Workload, s, can_l, can_r, ops):
     """`_batched_trip` with the decision in one `trip_plan` call: lmask is
     the batch, or the one-hot serial-local fallback; when it is empty the
-    trip is the first-argmin agent's remote turn."""
+    trip is the co-scheduled remote batch rmask (remote-batching
+    capability only) or, when that is empty too, the first-argmin agent's
+    remote turn."""
     if not wl.has_remote:
         return _batched_trip(wl, s, can_l, can_r, ops)
+    cap = wl.remote_cap
     plan = fused_turn.trip_plan(s.store.counters.cycles, can_l, can_r,
-                                wl.remote_bound(wl, s, *ops), None, None,
-                                remote_cap=False)
+                                wl.remote_bound(wl, s, *ops),
+                                wl.remote_addr(wl, s, *ops) if cap else None,
+                                None, remote_cap=cap)
     if bool(plan.lmask.any()):
         return wl.local_turn(wl, s, plan.lmask, *ops)
+    if cap and bool(plan.rmask.any()):
+        return wl.remote_turn_b(wl, s, plan.rmask, *ops)
     return wl.remote_turn(wl, s, plan.wg, *ops)
 
 

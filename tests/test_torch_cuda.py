@@ -8,11 +8,15 @@ so they also run on a machine that has only PyTorch:
 (`--noconftest` because tests/conftest.py imports JAX).  The cases are
 the lists of `repro_torch.kernels.cases`, which `chip_smoke.py` runs too.
 """
+import json
+import pathlib
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import protocol as P  # noqa: E402
 from repro_torch.distributed import delta_sync as DS  # noqa: E402
 from repro_torch.kernels import cases as C  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as FA  # noqa: E402
@@ -22,6 +26,9 @@ from repro_torch.kernels.rmsnorm import ops as RN  # noqa: E402
 from repro_torch.kernels.selective_flush import ops as SF  # noqa: E402
 from repro_torch.kernels import timing  # noqa: E402
 from repro_torch.kernels.topk_router import ops as TR  # noqa: E402
+from repro_torch.workloads import sweep  # noqa: E402
+
+GOLDEN = pathlib.Path(P.__file__).resolve().parents[1] / "golden"
 
 
 @pytest.fixture
@@ -46,6 +53,39 @@ def test_drain_writeback_kernel_on_card(cuda, k):
     assert SF.drain_writeback.launches == before + 1
     np.testing.assert_array_equal(got.cpu().numpy(),
                                   SF.drain_writeback_ref(*args).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(len(C.DRAIN_CASES)),
+                         ids=_ids(C.DRAIN_CASES))
+def test_drain_writeback_bool_kernel_on_card(cuda, k):
+    """The REPRO_NO_PACK=1 instance: the same cases under bool masks."""
+    args = [C.to_torch(x) for x in C.dw_inputs(k, **C.DRAIN_CASES[k][1],
+                                               bool_mask=True)]
+    before = (SF.drain_writeback.launches, SF.drain_writeback_bool.launches)
+    got = SF.drain_writeback(*(a.to(cuda) for a in args))
+    torch.cuda.synchronize()
+    assert (SF.drain_writeback.launches,
+            SF.drain_writeback_bool.launches) == (before[0], before[1] + 1)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  SF.drain_writeback_ref(*args).numpy())
+
+
+@pytest.mark.cuda
+def test_bool_layout_kv_directory_cell_on_card(cuda, monkeypatch):
+    """kv_directory srsp n=64 seed 4 in the bool layout equals the packed
+    golden cell, through the bool drain kernel."""
+    monkeypatch.setattr(P, "PACKED", False)
+    golden = json.loads((GOLDEN / "kv_directory.json").read_text())
+    want = next(c for c in golden["cells"] if (
+        c["scenario"], c["n_agents"], c["seed"]) == ("srsp", 64, 4))
+    before = SF.drain_writeback_bool.launches
+    row = sweep.run_cell("kv_directory", "srsp", 64, 4, "fused",
+                         device=cuda)
+    assert SF.drain_writeback_bool.launches > before
+    assert row["counters"] == want["counters"]
+    assert (row["events"], row["check_ok"], row["check_fails"]) \
+        == (want["events"], want["check_ok"], want["check_fails"])
 
 
 @pytest.mark.cuda

@@ -34,6 +34,8 @@ def test_the_walk_sees_the_port():
     assert {"protocol.py", "harness.py", "kv_directory.py",
             "chip_smoke.py", "granite_moe_1b.py", "transformer.py",
             "moe.py", "attention.py", "engine.py", "golden.py",
-            "hier_sync.py", "compress.py", "delta_sync.py"} <= names
+            "hier_sync.py", "compress.py", "delta_sync.py", "reader_lock.py",
+            "producer_consumer.py", "producer_consumer_mc.py",
+            "faults.py"} <= names
     assert _forbidden("repro.core") and _forbidden("jax.numpy")
     assert not _forbidden("repro_torch.core")
