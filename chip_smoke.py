@@ -39,7 +39,7 @@ Phases, each fatal on failure:
      take (bytes over 3.35 TB/s, or operations over 67 TOP/s), the
      launches of phase 4, and the device operations one call makes under
      torch.profiler: exactly one kernel record, no memset or fill, for
-     both drain_writeback instances and trip_plan;
+     both drain_writeback instances, plane_commit and trip_plan;
   6. the device's busy time and idle share over one fused n=64 srsp run
      of kv_directory and of producer_consumer_mc (torch.profiler);
   7. the serving path of granite-moe-1b-a400m (`repro_torch.serve`):
@@ -182,14 +182,20 @@ def check_kernels(torch, C, SF, FT) -> dict:
             errs[kernel] = max(errs[kernel], e)
     for k, (name, kw) in enumerate(C.COMMIT_CASES):
         xs = C.pc_inputs(k, **kw)
-        got = FT.plane_commit(*on(xs))
+        args = on(xs)
+        got = FT.plane_commit(*args)
         want = FT.plane_commit_ref(*on(xs))
         want_cpu = FT.plane_commit_ref(*cpu(xs))
         torch.cuda.synchronize()
-        e = max(max_abs_err(got, want), max_abs_err(got, want_cpu))
+        e = max(max_abs_err(got, want), max_abs_err(got, want_cpu),
+                max_abs_err(args, on(xs)))         # inputs left as they were
         log(f"  plane_commit {name}: max_abs_err={e}")
         if e != 0.0:
             raise AssertionError(f"plane_commit {name} disagrees")
+        if {g.untyped_storage().data_ptr() for g in got} & {
+                a.untyped_storage().data_ptr() for a in args}:
+            raise AssertionError(f"plane_commit {name}: an output shares "
+                                 f"storage with an input")
         errs["plane_commit"] = max(errs["plane_commit"], e)
     for k, (name, kw, cap, fenced) in enumerate(C.PLAN_CASES):
         xs = C.plan_inputs(k, **kw)
@@ -379,26 +385,31 @@ def measure(torch, C, SF, FT, errs, launches) -> list:
     one call makes under torch.profiler (`T.device_ops`), which must be
     exactly one kernel record for the `T.ONE_OP` kernels."""
     dev = torch.device("cuda")
-    shapes = {}
+    shapes, timed = {}, []
     for n in T.SIM_NS:
         for call in T.sim_calls(C, SF, FT, n, dev):
-            name, fn, plain = call["name"], call["fn"], call["plain"]
+            fn, plain = call["fn"], call["plain"]
             b_ms, b_by = bound(call["bytes"], call["ops"])
-            ops = T.device_ops(fn)
             rec = {"shape": call["shape"], "ms": T.device_ms(fn),
                    "plain_ms": T.device_ms(plain), "bound_ms": b_ms,
                    "bound_by": b_by, "eager_ms": T.eager_ms(fn),
-                   "plain_eager_ms": T.eager_ms(plain),
-                   "device_ops": ops}
-            log(f"  {name} {call['shape']}: {rec['ms']:.7f} ms/call (plain "
-                f"{rec['plain_ms']:.7f}), eager {rec['eager_ms']:.7f} ms "
-                f"(plain {rec['plain_eager_ms']:.7f}), bound {b_ms:.7f} ms "
-                f"({b_by}); device ops a call: {ops}")
-            if name in T.ONE_OP and (sum(ops.values()) != 1 or not any(
-                    T.ONE_OP[name] in k for k in ops)):
-                raise AssertionError(f"{name} {call['shape']}: one call "
-                                     f"made {ops}, want one kernel")
-            shapes.setdefault(name, []).append(rec)
+                   "plain_eager_ms": T.eager_ms(plain)}
+            timed.append((call, rec))
+    # traced after every timing: once torch.profiler has run in a
+    # process, every later device time reads higher
+    for call, rec in timed:
+        name = call["name"]
+        ops = rec["device_ops"] = T.device_ops(call["fn"])
+        log(f"  {name} {call['shape']}: {rec['ms']:.7f} ms/call (plain "
+            f"{rec['plain_ms']:.7f}), eager {rec['eager_ms']:.7f} ms "
+            f"(plain {rec['plain_eager_ms']:.7f}), bound "
+            f"{rec['bound_ms']:.7f} ms ({rec['bound_by']}); device ops a "
+            f"call: {ops}")
+        if name in T.ONE_OP and (sum(ops.values()) != 1 or not any(
+                T.ONE_OP[name] in k for k in ops)):
+            raise AssertionError(f"{name} {call['shape']}: one call "
+                                 f"made {ops}, want one kernel")
+        shapes.setdefault(name, []).append(rec)
     return [{"name": name, "route": "cuda",
              "source": f"src/repro_torch/csrc/"
                        f"{SIM_SOURCES.get(name, name)}.cu",
@@ -980,10 +991,12 @@ def main(argv=None) -> int:
 
     phase(t_start, "[5] kernel times at the n=64 shapes and the serving "
                    "shapes")
-    kernels = measure(torch, C, SF, FT, errs, launches)
     lens = [len(r.prompt) for r in serve_requests(
         granite_moe_1b.CONFIG.vocab)]
-    kernels += measure_serving(torch, C, serve_ops, errs, lens)
+    # the serving kernels first: `measure` traces, and no time is taken
+    # after a trace in this phase
+    serving = measure_serving(torch, C, serve_ops, errs, lens)
+    kernels = measure(torch, C, SF, FT, errs, launches) + serving
 
     phase(t_start, "[6] where the time goes: one fused n=64 srsp run "
                    "under torch.profiler")

@@ -72,16 +72,18 @@ def dw_inputs(seed, nb, w, m, *, dup=True, pad=True, oor=False, hot=(),
     return l2, rows, dirty, idx
 
 
-def pc_inputs(seed, n, nb, w, *, oor=False):
+def pc_inputs(seed, n, nb, w, *, oor=False, block0=False):
     """plane_commit (wvalid, wdirty, b, o, set_valid, set_dirty).  A
     quarter of the lanes target the sign bit's word.  oor=True puts some
     blocks outside [0, nb) (clamped) and some offsets outside the row's
-    lanes (an empty bit)."""
+    lanes (an empty bit); block0=True puts every lane on block 0."""
     rng = np.random.default_rng(seed)
     lanes = (w + 31) // 32
     wv = words(rng, (n, nb, lanes), w)
     wd = words(rng, (n, nb, lanes), w)
     b = rng.integers(0, nb, n).astype(np.int32)
+    if block0:
+        b[:] = 0
     o = rng.integers(0, w, n).astype(np.int32)
     o[: max(1, n // 4)] = min(31, w - 1)
     if oor:
@@ -129,12 +131,20 @@ DRAIN_CASES = [
     # sides of tile edges, pads and out-of-range rows
     ("past one tile", dict(nb=2048, w=16, m=512, oor=True,
                            hot=(0, 766, 767, 768, 769, 1535, 1536, 2047))),
+    # W=48: a packed row's second lane is ragged (16 of 32 words); a bool
+    # row is three 16-byte units
+    ("W=48 ragged second lane, dups+pads", dict(nb=64, w=48, m=200,
+                                                oor=True)),
 ]
 COMMIT_CASES = [
     ("n=64", dict(n=64, nb=128, w=16)),
     ("n=256", dict(n=256, nb=512, w=16)),
     ("two lanes, bit 31", dict(n=6, nb=8, w=64)),
     ("ragged lane, out of range", dict(n=8, nb=4, w=40, oor=True)),
+    # a lane's slice of 6 words: 16-byte units would straddle lanes
+    ("slice of 6 words", dict(n=5, nb=3, w=40)),
+    ("one lane", dict(n=1, nb=128, w=16)),
+    ("every lane on block 0", dict(n=64, nb=128, w=16, block0=True)),
 ]
 PLAN_CASES = (
     [(f"n={n} remote_cap={cap} fenced={fenced}",

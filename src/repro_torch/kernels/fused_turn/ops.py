@@ -165,10 +165,15 @@ def _commit_launch(wvalid, wdirty, b, o, set_valid, set_dirty):
                         (set_valid, "set_valid", torch.bool),
                         (set_dirty, "set_dirty", torch.bool)):
         common.require(t, name, dt, (n,))
-    wv2 = torch.empty_like(wvalid)
-    wd2 = torch.empty_like(wdirty)
-    was_v = torch.empty((n,), dtype=torch.bool, device=wvalid.device)
-    was_d = torch.empty_like(was_v)
+    # one buffer for both fresh planes and one for both flag vectors: two
+    # allocations in place of four, and a shorter kernel at n=256
+    # (PERF.md §6).
+    # Nothing of the port writes into a plane in place, so the planes may
+    # share a storage.
+    wv2, wd2 = torch.empty((2, n, nb, lanes), dtype=I32,
+                           device=wvalid.device).unbind()
+    was_v, was_d = torch.empty((2, n), dtype=torch.bool,
+                               device=wvalid.device).unbind()
     common.launch("plane_commit", [ctypes.c_void_p] * 10
                   + [ctypes.c_int] * 3, wvalid.device,
                   *(common.ptr(t) for t in (wvalid, wdirty, b, o, set_valid,

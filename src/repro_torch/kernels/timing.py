@@ -1,6 +1,7 @@
 """Timing the port's kernels on the card, and the simulator kernels' A/B.
 
-    python3 src/repro_torch/kernels/timing.py [--trees DIR ...] [--out PATH]
+    python3 src/repro_torch/kernels/timing.py [--trees DIR ...] [--rounds R]
+                                              [--out PATH]
     python3 src/repro_torch/kernels/timing.py --trace-misses ROUNDS
 
 Helpers that `chip_smoke.py` and `tests/test_torch_cuda.py` share:
@@ -17,10 +18,16 @@ operations: `drain_writeback` under a packed mask and under a bool mask
 
 As a script it times those kernels at n=64 and n=256 (device ms, eager
 ms, device operations a call), a line each, then all as one JSON line.
-With `--trees`, it times each checkout's `src/` in a process of
-its own, in the order given (parent, change, change, parent compares two
-versions on one card); only the kernel wrappers and the case generators
-come from the checkout, so a checkout that predates this file works.
+With `--trees`, it loads each checkout's `src/` apart in this one
+process (`load_tree`: each keeps its own modules, kernel libraries and
+`build/`) and times each kernel and shape in turns over the trees, in
+the order given (parent, change, change, parent compares two versions
+on one card), `--rounds` times over, then ends with each tree's medians
+and, for two trees, how many parent/change pairs the change wins.
+One process and fine turns, because the host's speed, and so every
+eager time, moves by half from one process, or one minute, to the next.
+Only the kernel wrappers and the case generators come from the
+checkout, so a checkout that predates this file works.
 `--trace-misses` counts the traces that come back with no CUDA-side
 record over ROUNDS rounds of chip_smoke.py phase 5's order, with no
 slack in the window and with TRACE_SLACK_S.
@@ -29,9 +36,9 @@ This file imports nothing of the port at import time.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
-import subprocess
 import sys
 
 
@@ -208,36 +215,78 @@ SIM_NS = (64, 256)
 # their __global__ function in torch.profiler's records
 ONE_OP = {"drain_writeback": "drain_writeback_kernel",
           "drain_writeback_bool": "drain_writeback_kernel",
+          "plane_commit": "plane_commit_kernel",
           "trip_plan": "trip_plan_kernel"}
 
 
-def time_tree(src: str) -> list:
-    """Device and eager ms per call of the simulator's kernels from the
-    port under `src`, at n in SIM_NS."""
+def load_tree(src: str) -> tuple:
+    """(cases, selective_flush.ops, fused_turn.ops) of the port under
+    `src`, imported apart from any tree loaded before: the modules of the
+    earlier tree leave `sys.modules` first, and keep the modules they
+    imported, so trees loaded in turn coexist in one process."""
+    for name in [m for m in sys.modules if m.split(".")[0] == "repro_torch"]:
+        del sys.modules[name]
     sys.path.insert(0, os.path.abspath(src))
-    import torch
+    try:
+        return tuple(importlib.import_module(f"repro_torch.kernels.{m}")
+                     for m in ("cases", "selective_flush.ops",
+                               "fused_turn.ops"))
+    finally:
+        sys.path.pop(0)
 
-    from repro_torch.kernels import cases as C
-    from repro_torch.kernels.fused_turn import ops as FT
-    from repro_torch.kernels.selective_flush import ops as SF
+
+def time_trees(trees: list, rounds: int) -> list:
+    """Device and eager ms per call of the simulator's kernels at n in
+    SIM_NS for each checkout in `trees` (`load_tree`; a path may repeat),
+    interleaved: each kernel and shape is timed `rounds` times over the
+    list of trees before the next, so the host's drift falls on every
+    tree alike.  One record a measurement; the device operations a call
+    makes (`device_ops`) are taken after every timing."""
+    import torch
+    calls = {}
+    for tree in trees:
+        key = os.path.abspath(tree)
+        if key not in calls:
+            mods = load_tree(os.path.join(tree, "src"))
+            calls[key] = {(c["name"], c["shape"]): dict(c, n=n)
+                          for n in SIM_NS
+                          for c in sim_calls(*mods, n, torch.device("cuda"))}
+    kinds = list(dict.fromkeys(k for per in calls.values() for k in per))
     recs = []
-    for n in SIM_NS:
-        for call in sim_calls(C, SF, FT, n, torch.device("cuda")):
-            recs.append({"name": call["name"], "n": n,
-                         "shape": call["shape"],
-                         "ms": device_ms(call["fn"]),
-                         "eager_ms": eager_ms(call["fn"]),
-                         "ops_per_call": sum(device_ops(call["fn"])
-                                             .values())})
+    for kind in kinds:
+        for _ in range(rounds):
+            for tree in trees:
+                call = calls[os.path.abspath(tree)].get(kind)
+                if call is None:          # an older tree lacks this kernel
+                    continue
+                rec = {"tree": tree, "name": call["name"], "n": call["n"],
+                       "shape": call["shape"], "ms": device_ms(call["fn"]),
+                       "eager_ms": eager_ms(call["fn"])}
+                recs.append(rec)
+                print(f"{tree}: {rec['name']} {rec['shape']}: "
+                      f"{rec['ms']:.7f} ms, eager {rec['eager_ms']:.7f} ms",
+                      flush=True)
+    # traced last: once torch.profiler has run in a process, every later
+    # device time reads higher
+    ops = {}
+    for rec in recs:
+        key = (rec["tree"], rec["name"], rec["shape"])
+        if key not in ops:
+            call = calls[os.path.abspath(rec["tree"])][key[1:]]
+            ops[key] = sum(device_ops(call["fn"]).values())
+            print(f"{rec['tree']}: {rec['name']} {rec['shape']}: "
+                  f"{ops[key]} device ops a call", flush=True)
+        rec["ops_per_call"] = ops[key]
     return recs
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trees", nargs="*", default=None,
-                    help="checkouts to time, each in its own process, in "
-                         "this order (default: this one)")
-    ap.add_argument("--one", default=None, help=argparse.SUPPRESS)
+                    help="checkouts to time, in turns, in this order "
+                         "(default: this one)")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="time the list of trees this many times over")
     ap.add_argument("--out", default=None)
     ap.add_argument("--trace-misses", type=int, default=0, metavar="ROUNDS",
                     help="count torch.profiler's empty traces over ROUNDS "
@@ -249,40 +298,84 @@ def main(argv=None) -> int:
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
     if args.trace_misses:
-        sys.path.insert(0, os.path.abspath(os.path.join(here, "..", "..")))
-        from repro_torch.kernels import cases as C
-        from repro_torch.kernels.fused_turn import ops as FT
-        from repro_torch.kernels.selective_flush import ops as SF
-        calls = sim_calls(C, SF, FT, 64, torch.device("cuda"))
+        calls = sim_calls(*load_tree(os.path.join(here, "..", "..")), 64,
+                          torch.device("cuda"))
         print(json.dumps({"rounds": args.trace_misses, "misses_by_slack_s":
                           trace_misses(calls, args.trace_misses)}))
         return 0
-    if args.one:
-        print(json.dumps(time_tree(args.one)))
-        return 0
     trees = args.trees or [os.path.abspath(os.path.join(here, "..", "..",
                                                         ".."))]
-    runs = []
-    for tree in trees:
-        out = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--one", os.path.join(tree, "src")],
-                             capture_output=True, text=True)
-        if out.returncode != 0:
-            print(out.stdout + out.stderr, file=sys.stderr)
-            return out.returncode
-        recs = json.loads(out.stdout.strip().splitlines()[-1])
-        runs.append({"tree": tree, "kernels": recs})
-        for r in recs:
-            print(f"{tree}: {r['name']} {r['shape']}: {r['ms']:.7f} ms, "
-                  f"eager {r['eager_ms']:.7f} ms, {r['ops_per_call']} "
-                  f"device ops a call", flush=True)
+    recs = time_trees(trees, args.rounds)
+    medians = tree_medians(recs)
+    for m in medians:
+        print(f"median of {m['runs']} runs, {m['tree']}: {m['name']} "
+              f"{m['shape']}: {m['ms']:.7f} ms, eager {m['eager_ms']:.7f} ms",
+              flush=True)
+    pairs = pair_wins(recs)
+    for m in pairs:
+        print(f"pairs, {m['name']} {m['shape']}: {m['tree']} under "
+              f"{m['base']} in {m['ms_wins']}/{m['pairs']} (device), "
+              f"{m['eager_wins']}/{m['pairs']} (eager); {m['base']}'s "
+              f"interquartile range {m['base_ms_iqr']:.7f} ms, eager "
+              f"{m['base_eager_iqr']:.7f} ms", flush=True)
+    doc = {"records": recs, "medians": medians, "pairs": pairs}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump(runs, f, indent=1)
-    print(json.dumps(runs))
+            json.dump(doc, f, indent=1)
+    print(json.dumps(doc))
     return 0
+
+
+def tree_medians(recs: list) -> list:
+    """Per tree, kernel and shape: the median device and eager ms over
+    that tree's records (the upper median of an even count)."""
+    by = {}
+    for r in recs:
+        by.setdefault((r["tree"], r["name"], r["shape"]), []).append(r)
+    out = []
+    for (tree, name, shape), recs in by.items():
+        ms, eager = (sorted(r[k] for r in recs)[len(recs) // 2]
+                     for k in ("ms", "eager_ms"))
+        out.append({"tree": tree, "name": name, "shape": shape,
+                    "runs": len(recs), "ms": ms, "eager_ms": eager})
+    return out
+
+
+def _quartiles(xs: list) -> tuple:
+    xs = sorted(xs)
+    return xs[len(xs) // 4], xs[(3 * len(xs)) // 4]
+
+
+def pair_wins(recs: list) -> list:
+    """With two trees (the first named is the base): per kernel and shape,
+    the records taken one after another paired in turn (parent, change,
+    change, parent gives two pairs a round); how many pairs the other
+    tree wins on device and on eager time (a tie counts for neither), and
+    the interquartile range of the base's own runs."""
+    trees = list(dict.fromkeys(r["tree"] for r in recs))
+    if len(trees) != 2:
+        return []
+    base, other = trees
+    by = {}
+    for r in recs:
+        by.setdefault((r["name"], r["shape"]), []).append(r)
+    out = []
+    for (name, shape), rs in by.items():
+        pairs = [(a, b) if a["tree"] == base else (b, a)
+                 for a, b in zip(rs[::2], rs[1::2]) if a["tree"] != b["tree"]]
+        mine = [r for r in rs if r["tree"] == base]
+        iqr = {k: (lambda q: q[1] - q[0])(_quartiles([r[k] for r in mine]))
+               for k in ("ms", "eager_ms")}
+        out.append({"name": name, "shape": shape, "base": base,
+                    "tree": other, "pairs": len(pairs),
+                    "ms_wins": sum(c["ms"] < p["ms"] for p, c in pairs),
+                    "eager_wins": sum(c["eager_ms"] < p["eager_ms"]
+                                      for p, c in pairs),
+                    "base_ms_iqr": iqr["ms"],
+                    "base_eager_iqr": iqr["eager_ms"]})
+    return out
 
 
 if __name__ == "__main__":

@@ -101,6 +101,36 @@ def test_plane_commit_kernel_on_card(cuda, k):
         np.testing.assert_array_equal(g.cpu().numpy(), x.numpy())
 
 
+def _commit_returns_fresh_planes(device):
+    """plane_commit on the n=64 case: no output shares storage with an
+    input, and the inputs are left as they were."""
+    xs = C.pc_inputs(0, **C.COMMIT_CASES[0][1])
+    args = [C.to_torch(x).to(device) for x in xs]
+    got = FT.plane_commit(*args)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    inputs = {a.untyped_storage().data_ptr() for a in args}
+    assert not {g.untyped_storage().data_ptr() for g in got} & inputs
+    for a, x in zip(args, xs):
+        np.testing.assert_array_equal(a.cpu().numpy(), C.to_torch(x).numpy())
+    for g, x in zip(got, FT.plane_commit_ref(*(C.to_torch(x) for x in xs))):
+        np.testing.assert_array_equal(g.cpu().numpy(), x.numpy())
+
+
+@pytest.mark.cuda
+def test_plane_commit_returns_fresh_planes_on_card(cuda):
+    before = FT.plane_commit.launches
+    _commit_returns_fresh_planes(cuda)
+    assert FT.plane_commit.launches == before + 1
+
+
+def test_plane_commit_returns_fresh_planes_on_cpu():
+    """The CPU twin: the plain version, no launch."""
+    before = FT.plane_commit.launches
+    _commit_returns_fresh_planes(torch.device("cpu"))
+    assert FT.plane_commit.launches == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", range(len(C.PLAN_CASES)),
                          ids=_ids(C.PLAN_CASES))

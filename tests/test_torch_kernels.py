@@ -108,6 +108,20 @@ def test_plane_commit_matches_pallas(n, nb, w, oor):
     assert FT.plane_commit.launches == 0
 
 
+# the on-card case list; the seed is the case's index, as on the card
+@pytest.mark.parametrize("k", range(len(C.COMMIT_CASES)),
+                         ids=[c[0] for c in C.COMMIT_CASES])
+def test_plane_commit_cases_match_pallas(k):
+    xs = pc_inputs(k, **C.COMMIT_CASES[k][1])
+    want = plane_commit_pallas(*(jnp.asarray(x) for x in xs), interpret=True)
+    got = FT.plane_commit(*(_t(x) for x in xs))
+    for g, x in zip(got, want):
+        x = np.asarray(x)
+        np.testing.assert_array_equal(
+            g.numpy().view(np.uint32) if x.dtype == np.uint32
+            else g.numpy(), x)
+
+
 def test_plane_commit_load_shape_matches_reference():
     """set_dirty=None (the b_load shape): wdirty untouched, both pre-op
     bits reported, against the JAX reference it shares."""
