@@ -39,7 +39,8 @@ Phases, each fatal on failure:
      take (bytes over 3.35 TB/s, or operations over 67 TOP/s), the
      launches of phase 4, and the device operations one call makes under
      torch.profiler: exactly one kernel record, no memset or fill, for
-     both drain_writeback instances, plane_commit and trip_plan;
+     both drain_writeback instances, plane_commit and trip_plan, and for
+     rmsnorm and topk_router at their decode and prefill shapes;
   6. the device's busy time and idle share over one fused n=64 srsp run
      of kv_directory and of producer_consumer_mc (torch.profiler);
   7. the serving path of granite-moe-1b-a400m (`repro_torch.serve`):
@@ -73,12 +74,15 @@ Phases, each fatal on failure:
 
 Phases 3 and 5 cover the serving kernels too (rmsnorm, flash_attention,
 flash_decode, topk_router): phase 3 holds them to their plain versions
-within the tolerances of `repro_torch.kernels.cases`; phase 5 times them
-at the bfloat16 serving shapes beside their bound (bytes over 3.35 TB/s
-or flops over 989 TFLOP/s bf16 / 67 TFLOP/s float32) and one PyTorch
-call of the same function (scaled_dot_product_attention, rms_norm),
-flash_attention at every prefill length of phase 7's prompts, each with
-its eager time (host launch and tensor-map encode included).  Phase 2
+within the tolerances of `repro_torch.kernels.cases`, rmsnorm also on
+views whose base is off 16 bytes; phase 5 times them at the bfloat16
+serving shapes beside their bound (bytes over 3.35 TB/s or flops over
+989 TFLOP/s bf16 / 67 TFLOP/s float32) and one PyTorch call of the same
+function (scaled_dot_product_attention, rms_norm), flash_attention at
+every prefill length of phase 7's prompts, rmsnorm and topk_router at
+the decode and the prefill shapes beside the launch floor (an empty
+kernel's device time), each with its eager time (host launch and
+tensor-map encode included).  Phase 2
 logs each kernel's ptxas report (registers, shared memory, spills).
 Phase 3 holds selective_flush to its plain version bitwise on
 `cases.FLUSH_CASES`; phase 8 times it.
@@ -395,21 +399,16 @@ def measure(torch, C, SF, FT, errs, launches) -> list:
                    "bound_by": b_by, "eager_ms": T.eager_ms(fn),
                    "plain_eager_ms": T.eager_ms(plain)}
             timed.append((call, rec))
+    for call, rec in timed:
+        log(f"  {call['name']} {call['shape']}: {rec['ms']:.7f} ms/call "
+            f"(plain {rec['plain_ms']:.7f}), eager {rec['eager_ms']:.7f} ms "
+            f"(plain {rec['plain_eager_ms']:.7f}), bound "
+            f"{rec['bound_ms']:.7f} ms ({rec['bound_by']})")
     # traced after every timing: once torch.profiler has run in a
     # process, every later device time reads higher
+    check_one_op(timed)
     for call, rec in timed:
-        name = call["name"]
-        ops = rec["device_ops"] = T.device_ops(call["fn"])
-        log(f"  {name} {call['shape']}: {rec['ms']:.7f} ms/call (plain "
-            f"{rec['plain_ms']:.7f}), eager {rec['eager_ms']:.7f} ms "
-            f"(plain {rec['plain_eager_ms']:.7f}), bound "
-            f"{rec['bound_ms']:.7f} ms ({rec['bound_by']}); device ops a "
-            f"call: {ops}")
-        if name in T.ONE_OP and (sum(ops.values()) != 1 or not any(
-                T.ONE_OP[name] in k for k in ops)):
-            raise AssertionError(f"{name} {call['shape']}: one call "
-                                 f"made {ops}, want one kernel")
-        shapes.setdefault(name, []).append(rec)
+        shapes.setdefault(call["name"], []).append(rec)
     return [{"name": name, "route": "cuda",
              "source": f"src/repro_torch/csrc/"
                        f"{SIM_SOURCES.get(name, name)}.cu",
@@ -462,6 +461,12 @@ def check_serving_kernels(torch, C, ops) -> dict:
             rel, e = C.check_float(fn, plain, *C.float_args(name, k), dev)
             errs[name] = max(errs.get(name, 0.0), e)
             log(f"  {name} {case[0]}: rel err {rel:.3g}")
+    RN = ops["rmsnorm"]
+    for k, case in enumerate(C.RMS_VIEW_CASES):
+        rel, e = C.check_float(RN.rmsnorm, RN.rmsnorm_ref,
+                               *C.rms_view_args(k, dev), dev)
+        errs["rmsnorm"] = max(errs["rmsnorm"], e)
+        log(f"  rmsnorm {case[0]}: rel err {rel:.3g}")
     TR = ops["topk_router"]
     for k, case in enumerate(C.ROUTER_CASES):
         e, decided, rows = C.check_router(TR.topk_router, TR.topk_router_ref,
@@ -472,18 +477,28 @@ def check_serving_kernels(torch, C, ops) -> dict:
     return errs
 
 
-def measure_serving(torch, C, ops, errs, prompt_lens) -> list:
+def measure_serving(torch, C, ops, errs, prompt_lens) -> tuple:
     """Phase 5, the serving kernels at the bfloat16 shapes of phase 7's
     engine (slots=4, max_len=512, its prompts' lengths): device time
     of the kernel, of its plain version and of one PyTorch call of the
-    same function, beside the bound.  `launches` is filled by phase 7."""
+    same function, beside the bound; rmsnorm and topk_router at the
+    decode and the prefill shapes (`T.serve_calls`), beside the launch
+    floor, the device time of an empty kernel.  `launches` is filled by
+    phase 7.  Returns (records, [(call, record)] of the `T.ONE_OP`
+    kernels, to trace once every time is taken)."""
     import torch.nn.functional as F
+
+    from repro_torch.kernels import common
     dev = torch.device("cuda")
     bf = torch.bfloat16
     es = 2
     out = []
     RN, FA, FD, TR = (ops[n] for n in ("rmsnorm", "flash_attention",
                                        "flash_decode", "topk_router"))
+    floor = T.device_ms(lambda: common.launch("rmsnorm", [], dev,
+                                              entry="repro_empty"))
+    log(f"  launch floor (an empty kernel, one CTA of 32 threads): "
+        f"{floor:.7f} ms/call")
 
     def entry(name, replaces, shape, fn, plain, library, nbytes, flops,
               rate, note=None):
@@ -505,19 +520,34 @@ def measure_serving(torch, C, ops, errs, prompt_lens) -> list:
             f"{rec['eager_ms']:.5f} ms, bound {b_ms:.7f} ms ({b_by})")
         out.append(rec)
 
+    serve = T.serve_calls(C, RN, TR, dev)
+    one_op = []
+
+    def by_shape(name, replaces, library, note=None):
+        """`name` at each of T.SERVE_SHAPES: the decode shape's record is
+        the kernel's entry, every shape's goes to its `by_shape`."""
+        recs = []
+        for call in (c for c in serve if c["name"] == name):
+            entry(name, replaces, call["shape"], call["fn"], call["plain"],
+                  library(*call["args"]), call["bytes"], call["ops"],
+                  OPS_PER_S, note=note and (lambda rec: note(*call["args"])))
+            rec = out.pop() | {"launch_floor_ms": floor}
+            log(f"    over the launch floor: {rec['ms'] - floor:.7f} ms")
+            recs.append(rec)
+            one_op.append((call, rec))
+        out.append(recs[0] | {"by_shape": recs})
+
     gen = torch.Generator(device=dev).manual_seed(5)
 
     def randn(*shape, dtype=bf):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    rows, d = SERVE_SLOTS, 1024
-    x, w = randn(rows, 1, d), torch.rand(d, generator=gen, device=dev) + 0.5
-    w_bf = w.to(bf)
-    entry("rmsnorm", "src/repro/kernels/rmsnorm/kernel.py:24",
-          f"x [{rows},1,{d}] bf16 (decode)", lambda: RN.rmsnorm(x, w),
-          lambda: RN.rmsnorm_ref(x, w),
-          lambda: F.rms_norm(x, (d,), w_bf, 1e-6),
-          2 * es * rows * d + 4 * d, 3 * rows * d, OPS_PER_S)
+    def rms_norm_call(x, w):
+        w_bf = w.to(bf)             # F.rms_norm takes the weight in x's type
+        return lambda: F.rms_norm(x, (x.shape[-1],), w_bf, 1e-6)
+
+    by_shape("rmsnorm", "src/repro/kernels/rmsnorm/kernel.py:24",
+             rms_norm_call)
 
     # every prefill length of phase 7's prompts; the longest is the
     # kernel's entry, the others go to its `by_length`
@@ -561,18 +591,26 @@ def measure_serving(torch, C, ops, errs, prompt_lens) -> list:
     log(f"    flash_decode launches {out[-1]['clusters']} clusters of 8 "
         f"CTAs; {out[-1]['resident_clusters']} fit on the card at once")
 
-    t, e, topk = SERVE_SLOTS, 32, 8
-    logits = torch.randn((t, e), generator=gen, device=dev)
-    entry("topk_router", "src/repro/kernels/topk_router/kernel.py:43",
-          f"logits [{t},{e}] f32 k={topk} (decode)",
-          lambda: TR.topk_router(logits, topk),
-          lambda: TR.topk_router_ref(logits, topk), None,
-          4 * t * e + 8 * t * topk, t * e * (3 + topk), OPS_PER_S,
-          note=lambda rec: {"two_call_ms": T.device_ms(
-              lambda: torch.softmax(logits, -1).topk(topk)),
-              "library_note": "no one PyTorch call; two_call_ms is "
-                              "softmax + topk (no renormalisation)"})
-    return out
+    by_shape("topk_router", "src/repro/kernels/topk_router/kernel.py:43",
+             lambda g, k: None,
+             note=lambda g, k: {"two_call_ms": T.device_ms(
+                 lambda: torch.softmax(g, -1).topk(k)),
+                 "library_note": "no one PyTorch call; two_call_ms is "
+                                 "softmax + topk (no renormalisation)"})
+    return out, one_op
+
+
+def check_one_op(calls) -> None:
+    """Phase 5: each (call, record) under torch.profiler
+    (`T.device_ops`, kept in the record), which must show exactly one
+    kernel record, of the kernel's own __global__ function."""
+    for call, rec in calls:
+        ops = rec["device_ops"] = T.device_ops(call["fn"])
+        log(f"  {call['name']} {call['shape']}: device ops a call: {ops}")
+        if sum(ops.values()) != 1 or not any(
+                T.ONE_OP[call["name"]] in k for k in ops):
+            raise AssertionError(f"{call['name']} {call['shape']}: one call "
+                                 f"made {ops}, want one kernel")
 
 
 def device_busy(torch, fn) -> tuple:
@@ -780,8 +818,8 @@ def serve_path(torch, counters) -> dict:
 
 
 # the __global__ functions of csrc/ that the serving path launches
-PORT_KERNELS = ("rmsnorm_kernel", "wgmma_kernel", "flash_kernel",
-                "decode_kernel", "router_kernel")
+PORT_KERNELS = ("rmsnorm_rows_kernel", "wgmma_kernel", "flash_kernel",
+                "decode_kernel", "topk_router_kernel")
 
 
 def _port_kernels(kernels) -> dict:
@@ -995,8 +1033,9 @@ def main(argv=None) -> int:
         granite_moe_1b.CONFIG.vocab)]
     # the serving kernels first: `measure` traces, and no time is taken
     # after a trace in this phase
-    serving = measure_serving(torch, C, serve_ops, errs, lens)
+    serving, one_op = measure_serving(torch, C, serve_ops, errs, lens)
     kernels = measure(torch, C, SF, FT, errs, launches) + serving
+    check_one_op(one_op)
 
     phase(t_start, "[6] where the time goes: one fused n=64 srsp run "
                    "under torch.profiler")

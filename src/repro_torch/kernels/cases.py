@@ -4,16 +4,18 @@ One list of cases per kernel: the simulator's shapes at n=64 and n=256
 plus the edge cases (duplicate destinations, pads, out-of-range indices
 and offsets, dirty bit 31, a ragged last lane, remote_cap, fences, empty
 masks), the serving path's shapes at granite-moe-1b-a400m's width
-(ragged sequence lengths, kv_len 1 and max_len, planted router ties),
-and the cross-pod sync's flattened banks for selective_flush (pads,
-indices at or above nb, widths and base pointers off 16 bytes).
-`chip_smoke.py` and `tests/test_torch_cuda.py` run these lists on the
-card, the serving kernels' through `check_float` and `check_router`;
-`tests/test_torch_kernels.py` and
-`tests/test_torch_model_kernels.py` feed the same generators to the JAX
-package's Pallas kernels and references.  Generators return numpy arrays, packed
-planes as uint32; `to_torch` views those as the port's int32 bit
-patterns.
+(ragged sequence lengths, kv_len 1 and max_len, planted router ties)
+and at the widths of the other configs (rmsnorm up to d=12288, rows
+and bases off 16 bytes; the router up to E=256 and underflowed
+probabilities), and the cross-pod sync's flattened
+banks for selective_flush (pads, indices at or above nb, widths and
+base pointers off 16 bytes).  `chip_smoke.py` and
+`tests/test_torch_cuda.py` run these lists on the card, the serving
+kernels' through `check_float` and `check_router`;
+`tests/test_torch_kernels.py` and `tests/test_torch_model_kernels.py`
+feed the same generators to the JAX package's Pallas kernels and
+references.  Generators return numpy arrays, packed planes as uint32;
+`to_torch` views those as the port's int32 bit patterns.
 """
 from __future__ import annotations
 
@@ -266,16 +268,24 @@ def decode_inputs(seed, b, hq, hkv, s, d, lens=None):
     return q, k, v, kv_len
 
 
-def router_inputs(seed, t, e):
+def router_inputs(seed, t, e, underflow=False):
     """topk_router logits [T, E] float32 with planted ties: every third
     row repeats one logit in several experts (exact ties in the softmax,
-    which must go to the lower index) and the last row is constant."""
+    which must go to the lower index) and the last row is constant.
+    underflow=True then leaves row r 1 + r % 4 live experts and puts the
+    others 200-300 below the row's largest logit, where their
+    probabilities are exactly 0.0 in float32: the later rounds choose
+    among zeros, by the lowest index not yet chosen."""
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((t, e)).astype(np.float32)
     for r in range(0, t, 3):
         cols = rng.choice(e, size=min(e, 4), replace=False)
         x[r, cols] = x[r, cols[0]]
     x[t - 1] = 0.5
+    if underflow:
+        for r in range(t):
+            dead = rng.permutation(e)[1 + r % 4:]
+            x[r, dead] = x[r].max() - rng.uniform(200.0, 300.0, len(dead))
     return x
 
 
@@ -291,8 +301,32 @@ def router_margin_rows(probs: np.ndarray, k: int, tol: float) -> np.ndarray:
 # (name, generator keyword arguments, dtype); the seed is the index
 RMS_CASES = [
     (f"{shape} {dt}", dict(shape=shape), dt)
-    for shape in ((1, 17, 1024), (1, 256, 1024), (4, 1, 1024), (5, 1, 64))
-    for dt in ("float32", "bfloat16")]
+    # granite's width (prefill, decode), SMOKE's, then the widths of the
+    # qwens and stablelm, deepseek-v3 and mistral-large: a CTA a row, and
+    # float32 at 12288 past the CTA's registers (a second read of x)
+    for shape in ((1, 17, 1024), (1, 256, 1024), (4, 1, 1024), (5, 1, 64),
+                  (3, 5120), (2, 7168), (2, 12288))
+    for dt in ("float32", "bfloat16")] + [
+    # rows that are not 16-byte multiples: the kernel's scalar instance, a
+    # warp a row, a CTA a row, and past the CTA's registers
+    ("(3, 36) bfloat16, 72-byte rows", dict(shape=(3, 36)), "bfloat16"),
+    ("(5, 37) float32, 148-byte rows", dict(shape=(5, 37)), "float32"),
+    ("(4, 1030) bfloat16, 2060-byte rows", dict(shape=(4, 1030)),
+     "bfloat16"),
+    ("(2, 4097) bfloat16, 8194-byte rows", dict(shape=(2, 4097)),
+     "bfloat16"),
+    # the widest row a warp takes (256 16-byte units) and the first a CTA
+    # takes
+    ("(3, 2048) bfloat16", dict(shape=(3, 2048)), "bfloat16"),
+    ("(3, 2056) bfloat16", dict(shape=(3, 2056)), "bfloat16")]
+# rmsnorm on contiguous views whose base is off 16 bytes (the kernel then
+# takes its scalar instance): (name, shape, dtype, x's offset in
+# elements, w's offset in elements)
+RMS_VIEW_CASES = [
+    ("x [4,1,1024] bf16 one element in", (4, 1, 1024), "bfloat16", 1, 0),
+    ("x [3,5120] f32 one element in", (3, 5120), "float32", 1, 0),
+    ("w [1024] one element in", (4, 1, 1024), "bfloat16", 0, 1),
+    ("x [2,7168] bf16 four elements in", (2, 7168), "bfloat16", 4, 0)]
 ATTN_CASES = (
     [(f"S={s} {dt}", dict(b=1, hq=16, hkv=8, s=s, d=64), dt)
      for s in (1, 5, 17, 64, 200, 512) for dt in ("float32", "bfloat16")]
@@ -315,12 +349,27 @@ DECODE_CASES = (
        for dt in ("bfloat16", "float32")]
     + [("B=3 S=24 SMOKE kv_len 7,8,9 float32",
         dict(b=3, hq=4, hkv=2, s=24, d=16, lens=(7, 8, 9)), "float32")])
+# (name, generator keyword arguments, k); the seed is the index
 ROUTER_CASES = [
     ("T=4 E=32 k=8", dict(t=4, e=32), 8),
     ("T=17 E=32 k=8", dict(t=17, e=32), 8),
     ("T=256 E=32 k=8", dict(t=256, e=32), 8),
     ("T=9 E=4 k=2 SMOKE", dict(t=9, e=4), 2),
     ("T=5 E=32 k=32 every expert", dict(t=5, e=32), 32),
+    # deepseek-v3's 256 experts, top-8 (8 experts a lane)
+    ("T=64 E=256 k=8", dict(t=64, e=256), 8),
+    ("T=17 E=64 k=6", dict(t=17, e=64), 6),
+    # fewer than k nonzero probabilities: zeros chosen by index
+    ("T=12 E=32 k=8 underflow", dict(t=12, e=32, underflow=True), 8),
+    ("T=9 E=256 k=8 underflow", dict(t=9, e=256, underflow=True), 8),
+    # whole runs of 4 experts a lane
+    ("T=33 E=128 k=8", dict(t=33, e=128), 8),
+    # ragged runs of 8 and 4 experts (E % 4 != 0), a partial run of 2,
+    # and k = 32 over 256 experts
+    ("T=7 E=250 k=8", dict(t=7, e=250), 8),
+    ("T=7 E=99 k=5", dict(t=7, e=99), 5),
+    ("T=7 E=37 k=4", dict(t=7, e=37), 4),
+    ("T=5 E=256 k=32", dict(t=5, e=256), 32),
 ]
 
 # tolerances of a kernel against its plain version, by the output's type:
@@ -348,6 +397,21 @@ def within(got: torch.Tensor, want: torch.Tensor, dtype: str) -> float:
 
 FLOAT_CASES = {"rmsnorm": RMS_CASES, "flash_attention": ATTN_CASES,
                "flash_decode": DECODE_CASES}
+
+
+def rms_view_args(k: int, device) -> tuple:
+    """(input tensors on `device`, output dtype name) of case k of
+    RMS_VIEW_CASES: x and w contiguous views their offsets into a buffer
+    (`to(device)` of a CPU view would copy it to an aligned base)."""
+    _, shape, dt, x_off, w_off = RMS_VIEW_CASES[k]
+    x, w = rms_inputs(100 + k, shape)
+
+    def view(a, dtype, off):
+        flat = to_dtype(a, dtype).reshape(-1).to(device)
+        buf = torch.zeros(off + flat.numel(), dtype=flat.dtype, device=device)
+        buf[off:] = flat
+        return buf[off:].view(a.shape)
+    return [view(x, dt, x_off), view(w, "float32", w_off)], dt
 
 
 def float_args(kernel: str, k: int) -> tuple:

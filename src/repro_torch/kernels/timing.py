@@ -1,4 +1,4 @@
-"""Timing the port's kernels on the card, and the simulator kernels' A/B.
+"""Timing the port's kernels on the card, and their A/B between checkouts.
 
     python3 src/repro_torch/kernels/timing.py [--trees DIR ...] [--rounds R]
                                               [--out PATH]
@@ -9,15 +9,18 @@ Helpers that `chip_smoke.py` and `tests/test_torch_cuda.py` share:
 and timed with CUDA events), `eager_ms` (wall time per call as a host
 loop pays it, launch included), `trace` (torch.profiler's records of
 one call, with idle slack at both ends of the window) and `device_ops`
-(the device operations one call makes, from `trace`).  `sim_calls` gives the simulator's
-kernels at the kv_directory shapes of n agents (nb = 2n bank rows of
-W=16 words, b_drain's m = 16n drained rows), with their bytes and
-operations: `drain_writeback` under a packed mask and under a bool mask
-(its REPRO_NO_PACK=1 instance, where the checkout has it),
-`plane_commit`, and `trip_plan` without and with the remote co-schedule.
+(the device operations one call makes, from `trace`).  `sim_calls`
+gives the simulator's kernels at the kv_directory shapes of n agents
+(nb = 2n bank rows of W=16 words, b_drain's m = 16n drained rows), with
+their bytes and operations: `drain_writeback` under a packed mask and
+under a bool mask (its REPRO_NO_PACK=1 instance, where the checkout has
+it), `plane_commit`, and `trip_plan` without and with the remote
+co-schedule.  `serve_calls` gives the serving path's `rmsnorm` and
+`topk_router` at granite-moe-1b-a400m's decode and prefill shapes.
 
-As a script it times those kernels at n=64 and n=256 (device ms, eager
-ms, device operations a call), a line each, then all as one JSON line.
+As a script it times those kernels, the simulator's at n=64 and n=256
+(device ms, eager ms, device operations a call), a line each, then all
+as one JSON line.
 With `--trees`, it loads each checkout's `src/` apart in this one
 process (`load_tree`: each keeps its own modules, kernel libraries and
 `build/`) and times each kernel and shape in turns over the trees, in
@@ -210,34 +213,79 @@ def sim_calls(C, SF, FT, n: int, device) -> list:
     return out
 
 
+# the serving shapes of granite-moe-1b-a400m (d=1024, E=32, top-8) on
+# the engine of chip_smoke.py phase 7: 4 slots a decode step, a prompt
+# of 256 tokens a prefill
+SERVE_SHAPES = {"decode": 4, "prefill": 256}
+
+
+def serve_calls(C, RN, TR, device) -> list:
+    """The serving path's `rmsnorm` (x bf16 [1, rows, 1024] or
+    [4, 1, 1024]) and `topk_router` (logits [T, 32] float32, k=8) at
+    each of SERVE_SHAPES: [{name, shape, fn, plain, bytes, ops}] (C, RN,
+    TR: the `cases`, `rmsnorm.ops` and `topk_router.ops` modules);
+    `args` holds the inputs, for a library call beside the kernel."""
+    out = []
+    d, e, k = 1024, 32, 8
+    for seed, (which, rows) in enumerate(SERVE_SHAPES.items()):
+        shape = (rows, 1, d) if which == "decode" else (1, rows, d)
+        x, w = C.rms_inputs(seed, shape)
+        x = C.to_dtype(x, "bfloat16").to(device)
+        w = C.to_dtype(w, "float32").to(device)
+        out.append(dict(
+            name="rmsnorm",
+            shape=f"x [{','.join(map(str, shape))}] bf16 ({which})",
+            fn=lambda x=x, w=w: RN.rmsnorm(x, w),
+            plain=lambda x=x, w=w: RN.rmsnorm_ref(x, w),
+            # x read and y written in bf16, w read in float32
+            bytes=2 * 2 * rows * d + 4 * d, ops=3 * rows * d,
+            args=(x, w)))
+        logits = C.to_torch(C.router_inputs(seed, rows, e)).to(device)
+        out.append(dict(
+            name="topk_router", shape=f"logits [{rows},{e}] f32 k={k} "
+                                      f"({which})",
+            fn=lambda g=logits: TR.topk_router(g, k),
+            plain=lambda g=logits: TR.topk_router_ref(g, k),
+            # logits read; weights and indices written
+            bytes=4 * rows * e + 8 * rows * k, ops=rows * e * (3 + k),
+            args=(logits, k)))
+    return out
+
+
 SIM_NS = (64, 256)
-# the simulator kernels whose call is one device operation, by the name of
-# their __global__ function in torch.profiler's records
+# the kernels whose call is one device operation, by the name of their
+# __global__ function in torch.profiler's records
 ONE_OP = {"drain_writeback": "drain_writeback_kernel",
           "drain_writeback_bool": "drain_writeback_kernel",
           "plane_commit": "plane_commit_kernel",
-          "trip_plan": "trip_plan_kernel"}
+          "trip_plan": "trip_plan_kernel",
+          "rmsnorm": "rmsnorm_rows_kernel",
+          "topk_router": "topk_router_kernel"}
+SERVE_KERNELS = ("rmsnorm", "topk_router")
 
 
 def load_tree(src: str) -> tuple:
-    """(cases, selective_flush.ops, fused_turn.ops) of the port under
-    `src`, imported apart from any tree loaded before: the modules of the
-    earlier tree leave `sys.modules` first, and keep the modules they
-    imported, so trees loaded in turn coexist in one process."""
+    """(cases, selective_flush.ops, fused_turn.ops, rmsnorm.ops,
+    topk_router.ops) of the port under `src`, imported apart from any
+    tree loaded before: the modules of the earlier tree leave
+    `sys.modules` first, and keep the modules they imported, so trees
+    loaded in turn coexist in one process."""
     for name in [m for m in sys.modules if m.split(".")[0] == "repro_torch"]:
         del sys.modules[name]
     sys.path.insert(0, os.path.abspath(src))
     try:
         return tuple(importlib.import_module(f"repro_torch.kernels.{m}")
                      for m in ("cases", "selective_flush.ops",
-                               "fused_turn.ops"))
+                               "fused_turn.ops", "rmsnorm.ops",
+                               "topk_router.ops"))
     finally:
         sys.path.pop(0)
 
 
 def time_trees(trees: list, rounds: int) -> list:
     """Device and eager ms per call of the simulator's kernels at n in
-    SIM_NS for each checkout in `trees` (`load_tree`; a path may repeat),
+    SIM_NS and of the serving kernels at SERVE_SHAPES (`serve_calls`)
+    for each checkout in `trees` (`load_tree`; a path may repeat),
     interleaved: each kernel and shape is timed `rounds` times over the
     list of trees before the next, so the host's drift falls on every
     tree alike.  One record a measurement; the device operations a call
@@ -247,10 +295,13 @@ def time_trees(trees: list, rounds: int) -> list:
     for tree in trees:
         key = os.path.abspath(tree)
         if key not in calls:
-            mods = load_tree(os.path.join(tree, "src"))
+            C, SF, FT, RN, TR = load_tree(os.path.join(tree, "src"))
+            dev = torch.device("cuda")
             calls[key] = {(c["name"], c["shape"]): dict(c, n=n)
                           for n in SIM_NS
-                          for c in sim_calls(*mods, n, torch.device("cuda"))}
+                          for c in sim_calls(C, SF, FT, n, dev)}
+            calls[key].update({(c["name"], c["shape"]): dict(c, n=None)
+                               for c in serve_calls(C, RN, TR, dev)})
     kinds = list(dict.fromkeys(k for per in calls.values() for k in per))
     recs = []
     for kind in kinds:
@@ -298,8 +349,8 @@ def main(argv=None) -> int:
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
     if args.trace_misses:
-        calls = sim_calls(*load_tree(os.path.join(here, "..", "..")), 64,
-                          torch.device("cuda"))
+        calls = sim_calls(*load_tree(os.path.join(here, "..", ".."))[:3],
+                          64, torch.device("cuda"))
         print(json.dumps({"rounds": args.trace_misses, "misses_by_slack_s":
                           trace_misses(calls, args.trace_misses)}))
         return 0

@@ -15,7 +15,8 @@ import torch
 from repro_torch.kernels import common
 
 NEG_INF = -1e30
-MAX_E = 32              # one lane per expert in csrc/topk_router.cu
+MAX_E = 256             # 8 experts a lane in csrc/topk_router.cu
+MAX_K = 32              # lane r keeps round r
 
 
 def topk_router_ref(logits: torch.Tensor, k: int):
@@ -42,9 +43,9 @@ def topk_router_ref(logits: torch.Tensor, k: int):
 
 def _launch(logits, k):
     t, e = logits.shape
-    if not 1 <= k <= e <= MAX_E:
-        raise ValueError(f"topk_router kernel takes 1 <= k <= E <= {MAX_E}, "
-                         f"got k={k} E={e}")
+    if not (1 <= k <= e <= MAX_E and k <= MAX_K):
+        raise ValueError(f"topk_router kernel takes E <= {MAX_E} and "
+                         f"1 <= k <= min(E, {MAX_K}), got k={k} E={e}")
     common.require(logits, "logits", torch.float32, (t, e))
     w = torch.empty((t, k), dtype=torch.float32, device=logits.device)
     idx = torch.empty((t, k), dtype=torch.int32, device=logits.device)

@@ -156,14 +156,23 @@ def test_trip_plan_kernel_refuses_more_than_1024_lanes(cuda):
         FT.trip_plan(*args, None, remote_cap=False)
 
 
+# the simulator's kernels at n agents, the serving ones at their shapes
+ONE_OP_CALLS = [(name, n) for name in sorted(timing.ONE_OP)
+                for n in (timing.SERVE_SHAPES if name in timing.SERVE_KERNELS
+                          else (16, 64, 256))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [16, 64, 256])
-@pytest.mark.parametrize("name", sorted(timing.ONE_OP))
+@pytest.mark.parametrize("name,n", ONE_OP_CALLS,
+                         ids=[f"{name}-{n}" for name, n in ONE_OP_CALLS])
 def test_one_call_is_one_device_operation(cuda, name, n):
     """Under torch.profiler one wrapper call at the kv_directory shapes of
-    n agents is one kernel record: no memset, no fill, no copy."""
-    call = next(c for c in timing.sim_calls(C, SF, FT, n, cuda)
-                if c["name"] == name)
+    n agents, or at a serving kernel's decode or prefill shape, is one
+    kernel record: no memset, no fill, no copy."""
+    calls = (timing.serve_calls(C, RN, TR, cuda) if isinstance(n, str)
+             else timing.sim_calls(C, SF, FT, n, cuda))
+    call = next(c for c in calls if c["name"] == name
+                and (not isinstance(n, str) or f"({n})" in c["shape"]))
     call["fn"]()                          # build and load outside the trace
     ops = timing.device_ops(call["fn"])
     assert sum(ops.values()) == 1, ops
@@ -275,6 +284,16 @@ def test_rmsnorm_kernel_on_card(cuda, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", range(len(C.RMS_VIEW_CASES)),
+                         ids=_ids(C.RMS_VIEW_CASES))
+def test_rmsnorm_kernel_on_views_off_16_bytes(cuda, k):
+    """x or w a contiguous view whose base is off 16 bytes: the kernel's
+    scalar instance, within `C.TOL` of the plain version."""
+    C.check_float(RN.rmsnorm, RN.rmsnorm_ref, *C.rms_view_args(k, cuda),
+                  cuda)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("k", range(len(C.ATTN_CASES)),
                          ids=_ids(C.ATTN_CASES))
 def test_flash_attention_kernel_on_card(cuda, k):
@@ -378,8 +397,10 @@ def test_topk_router_kernel_on_card(cuda, k):
 
 @pytest.mark.cuda
 def test_serving_kernels_refuse_what_they_do_not_take(cuda):
-    with pytest.raises(ValueError, match="E <= 32"):
-        TR.topk_router(torch.zeros((2, 64), device=cuda), 8)
+    with pytest.raises(ValueError, match="E <= 256"):
+        TR.topk_router(torch.zeros((2, 257), device=cuda), 8)
+    with pytest.raises(ValueError, match=r"k <= min\(E, 32\)"):
+        TR.topk_router(torch.zeros((2, 64), device=cuda), 33)
     q = torch.zeros((1, 2, 4, 32), device=cuda)
     with pytest.raises(ValueError, match="D in"):
         FA.flash_attention(q, q, q)

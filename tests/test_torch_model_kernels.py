@@ -53,8 +53,13 @@ def _close(got: torch.Tensor, want, dt: str):
 # rmsnorm
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("k", [0, 1, 4, 5, 6, 7],
-                         ids=[C.RMS_CASES[k][0] for k in (0, 1, 4, 5, 6, 7)])
+# every case but the 256-row prefill's (CPU time in interpret mode)
+CPU_RMS = [k for k, c in enumerate(C.RMS_CASES)
+           if c[1]["shape"][:2] != (1, 256)]
+
+
+@pytest.mark.parametrize("k", CPU_RMS,
+                         ids=[C.RMS_CASES[k][0] for k in CPU_RMS])
 def test_rmsnorm_matches_jax(k):
     _, kw, dt = C.RMS_CASES[k]
     x, w = C.rms_inputs(k, **kw)

@@ -72,3 +72,24 @@ def test_pair_wins_count_each_rounds_two_pairs():
     # parent's runs 1.9, 2.0, 2.1, 2.4: quartiles 2.0 and 2.4
     assert got["base_ms_iqr"] == pytest.approx(0.4)
     assert timing.pair_wins(recs[:2] + [rec("third", 1.0, 1.0)]) == []
+
+
+def test_serve_calls_give_both_serving_kernels_at_both_shapes():
+    """rmsnorm and topk_router at the decode and the prefill shapes; on
+    the CPU each call takes the plain version (no launch) and gives its
+    result; each serving kernel is held to one device operation."""
+    from repro_torch.kernels.rmsnorm import ops as RN
+    from repro_torch.kernels.topk_router import ops as TR
+    calls = timing.serve_calls(C, RN, TR, torch.device("cpu"))
+    assert sorted((c["name"], c["shape"].split("(")[-1]) for c in calls) \
+        == sorted((n, f"{w})") for n in timing.SERVE_KERNELS
+                  for w in timing.SERVE_SHAPES)
+    before = (RN.rmsnorm.launches, TR.topk_router.launches)
+    for c in calls:
+        got, want = c["fn"](), c["plain"]()
+        for g, w in zip(*(x if isinstance(x, tuple) else (x,)
+                          for x in (got, want))):
+            assert torch.equal(g, w)
+        assert c["bytes"] > 0 and c["ops"] > 0
+    assert (RN.rmsnorm.launches, TR.topk_router.launches) == before
+    assert set(timing.SERVE_KERNELS) <= set(timing.ONE_OP)
