@@ -22,16 +22,32 @@ Phases, each fatal on failure:
      fused; reader_lock, producer_consumer and producer_consumer_mc at
      n=64 srsp/rsp/baseline fused, srsp batched, and n=16 srsp serial,
      rsp/baseline fused and the scope_only staleness demo (check red);
-     each cell's `steady_s` and launches per run; every kernel must have
-     launched.  Then one fused producer_consumer_mc srsp n=64 run
-     records the size of each co-scheduled remote batch: some must hold
-     two or more drains.  Then the bool metadata layout: a child process
-     with REPRO_NO_PACK=1 runs kv_directory and the three workloads at
-     n=64 srsp seed 4 fused, held to the same golden cells, with the
-     launch counts set to 0 first: the bool drain kernel and trip_plan
-     must launch (bool planes take plane_commit's plain version, as in
-     the reference), the packed drain kernel must not; the child's
-     failure fails the run;
+     worksteal (the paper's §5.1 harness) at n=64 seed 2 under all five
+     scenarios fused and srsp batched, at n=16 seed 1 srsp serial and
+     rsp/baseline/scope_only fused; kv_serving on the lock and queue
+     grid at seed 4, each cell replaying the request trace the reference
+     generated for it (`golden/kv_serving_traces.npz`); each cell's
+     `steady_s` and launches per run.  Then worksteal's app drivers,
+     `run_app` at the paper's 64 CUs (PageRank on collab_like(8192),
+     SSSP on road_like(8192), MIS on router_like(8192); srsp and rsp,
+     two iterations), held to `golden/worksteal.json`'s records and
+     `worksteal_apps.npz`'s solutions.  Then the full-width kv_serving
+     cell (n=64, 256 requests per agent, zipf 1.2, burstiness 4, srsp
+     fused, seed 4): the port's own trace drawn on the card and held to
+     the reference's (`trace.compare`: keys and kinds exact, arrival
+     clocks within `arrival_rtol`) and served to a green check, then
+     the timed run on the reference's trace, held to its golden cell.
+     Every kernel must have launched in these paths, each path's launch
+     counts set to 0 just before it and read just after.  Then one fused
+     producer_consumer_mc srsp n=64 run records the size of each
+     co-scheduled remote batch: some must hold two or more drains.  Then
+     the bool metadata layout: a child process with REPRO_NO_PACK=1 runs
+     kv_directory, the three lock and queue workloads, worksteal (seed
+     2) and kv_serving (its golden trace) at n=64 srsp fused, held to
+     the same golden cells, with the launch counts set to 0 first: the
+     bool drain kernel and trip_plan must launch (bool planes take
+     plane_commit's plain version, as in the reference), the packed
+     drain kernel must not; the child's failure fails the run;
   5. per kernel at the n=64 shapes and at n=256 (`fuse_ab`'s): device
      time per call of the kernel and of its plain version (CUDA graph
      replay timed with CUDA events, `repro_torch.kernels.timing`), eager
@@ -42,7 +58,8 @@ Phases, each fatal on failure:
      both drain_writeback instances, plane_commit and trip_plan, and for
      rmsnorm and topk_router at their decode and prefill shapes;
   6. the device's busy time and idle share over one fused n=64 srsp run
-     of kv_directory and of producer_consumer_mc (torch.profiler);
+     of kv_directory, producer_consumer_mc and worksteal
+     (torch.profiler);
   7. the serving path of granite-moe-1b-a400m (`repro_torch.serve`):
      (1) the golden config (full width, 2 layers, float32, numpy
      weights) teacher-forced on `golden/granite_moe_serve.json`'s tokens,
@@ -87,6 +104,9 @@ logs each kernel's ptxas report (registers, shared memory, spills).
 Phase 3 holds selective_flush to its plain version bitwise on
 `cases.FLUSH_CASES`; phase 8 times it.
 
+Each phase's header prints the seconds since the start, and the end of
+the run lists each phase's duration.
+
 The last three lines of standard output are the kernels JSON, the
 nvidia-smi line, and {"ok": true, "device": {...}}.  Exits nonzero, and
 prints no result, without a CUDA device or outside a checkout.
@@ -109,21 +129,32 @@ GOLDEN_TOL = 1e-3               # float32 logits, card vs the JAX CPU run
 BF16_MARGIN = 0.125             # 8 bf16 ulps of logits of size 2-4
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW = 4, 512, 32
 T = None                        # repro_torch.kernels.timing, set by main
-# phase 4: (workload, scenario, n_agents, seed, engine); the lock and
-# queue workloads run every cell of their golden files
+# phase 4: (workload, scenario, n_agents, seed, engine[, trace]); the
+# lock and queue workloads, worksteal and kv_serving run every cell of
+# their golden files, a kv_serving cell replaying the request trace the
+# reference generated for it (`trace`, in golden/kv_serving_traces.npz)
 KV_CELLS = ([("kv_directory", s, N_MAIN, seed, "fused") for seed in (0, 4)
              for s in ("srsp", "rsp", "baseline")]
             + [("kv_directory", "srsp", N_MAIN, 4, "serial"),
                ("kv_directory", "srsp", N_MAIN, 4, "batched"),
                ("kv_directory", "srsp", 256, 4, "fused")])
 LOCK_QUEUE = ("reader_lock", "producer_consumer", "producer_consumer_mc")
-# phase 6's cells: the profiler's cost grows with a run's kernel records,
-# so reader_lock and producer_consumer, the two runs with the most, stay
-# out and the run keeps within half its time limit
-PROFILED = ("kv_directory", "producer_consumer_mc")
+GOLDEN_WORKLOADS = LOCK_QUEUE + ("worksteal", "kv_serving")
+TRACES = os.path.join(ROOT, "src", "repro_torch", "golden",
+                      "kv_serving_traces.npz")
+# phase 6's cells, (workload, seed): the profiler's cost grows with a
+# run's kernel records, so reader_lock, producer_consumer and
+# kv_serving, the runs with the most, stay out and the run keeps within
+# half its time limit
+PROFILED = (("kv_directory", 4), ("producer_consumer_mc", 4),
+            ("worksteal", 2))
 # the bool-layout child's cells
-BOOL_CELLS = [(w, "srsp", N_MAIN, 4, "fused")
-              for w in ("kv_directory",) + LOCK_QUEUE]
+BOOL_CELLS = ([(w, "srsp", N_MAIN, 4, "fused")
+               for w in ("kv_directory",) + LOCK_QUEUE]
+              + [("worksteal", "srsp", N_MAIN, 2, "fused"),
+                 ("kv_serving", "srsp", N_MAIN, 4, "fused",
+                  "n64_seed4_default")])
+PHASES = []                     # (header, start) of every phase
 
 
 def log(msg: str) -> None:
@@ -132,7 +163,15 @@ def log(msg: str) -> None:
 
 def phase(t_start: float, msg: str) -> None:
     """A phase's header, with the seconds since the run started."""
-    log(f"{msg}  [at {time.perf_counter() - t_start:.1f} s]")
+    now = time.perf_counter()
+    PHASES.append((msg, now))
+    log(f"{msg}  [at {now - t_start:.1f} s]")
+
+
+def phase_times(t_end: float) -> list:
+    """[(header, seconds)] of every phase."""
+    ends = [t for _, t in PHASES[1:]] + [t_end]
+    return [(m, e - t) for (m, t), e in zip(PHASES, ends)]
 
 
 def nvidia_smi() -> str:
@@ -244,51 +283,197 @@ def load_golden(workload: str) -> dict:
 
 def main_cells() -> list:
     """Phase 4's cells: kv_directory's, then every golden cell of the
-    lock and queue workloads."""
-    return KV_CELLS + [(w, c["scenario"], c["n_agents"], c["seed"],
-                        c["engine"])
-                       for w in LOCK_QUEUE for c in load_golden(w)["cells"]]
+    lock and queue workloads, worksteal and kv_serving at its default
+    traffic (the full-width serving cell has a phase of its own)."""
+    return KV_CELLS + [
+        (w, c["scenario"], c["n_agents"], c["seed"], c["engine"])
+        + ((c["trace"],) if "trace" in c else ())
+        for w in GOLDEN_WORKLOADS for c in load_golden(w)["cells"]
+        if c.get("traffic", "default") == "default"]
 
 
-def golden_cell(doc, scenario, n, seed, engine) -> dict:
-    """The golden cell of this engine, else the cell's fused run (the
-    engines' counters are equal; kv_directory's file holds fused runs)."""
-    cells = [c for c in doc["cells"] if (c["scenario"], c["n_agents"],
-                                         c["seed"]) == (scenario, n, seed)]
+def golden_cell(doc, scenario, n, seed, engine, trace=None) -> dict:
+    """The golden cell of this engine (and trace), else the cell's fused
+    run (the engines' counters are equal; kv_directory's file holds
+    fused runs)."""
+    cells = [c for c in doc["cells"] if (
+        c["scenario"], c["n_agents"], c["seed"], c.get("trace"))
+        == (scenario, n, seed, trace)]
     return next((c for c in cells if c["engine"] == engine), cells[0])
+
+
+def load_traces() -> dict:
+    """The golden request traces on the card: {name: (trace, meta)}."""
+    from repro_torch.traffic import trace as TT
+    return TT.load_set(TRACES, "cuda")
+
+
+def held(ctx: str, row: dict, ref: dict) -> None:
+    """Raise unless `row` has the golden cell's counters, events and
+    verdict."""
+    for key in ("events", "check_ok", "check_fails"):
+        if row[key] != ref[key]:
+            raise AssertionError(f"{ctx}: {key} {row[key]} != {ref[key]}")
+    if row["counters"] != ref["counters"]:
+        raise AssertionError(f"{ctx}: counters {row['counters']} != "
+                             f"golden {ref['counters']}")
 
 
 def run_cells(cells, launch_counters) -> list:
     """The cells through `run_cell` on the card, each held to its golden
-    cell; launch counts set to 0 first.  Raises on any difference."""
+    cell (a kv_serving cell on its golden trace); launch counts set to 0
+    first.  Raises on any difference."""
     from repro_torch.workloads import sweep
     goldens = {w: load_golden(w) for w in {c[0] for c in cells}}
+    traces = load_traces() if any(len(c) > 5 for c in cells) else {}
     for f in launch_counters:
         f.launches = 0
     rows = []
-    for workload, scenario, n, seed, engine in cells:
+    for workload, scenario, n, seed, engine, *trace in cells:
         before = [f.launches for f in launch_counters]
+        kw = {}
+        if trace:
+            tr, meta = traces[trace[0]]
+            kw = {"build_kw": {"traffic": meta["config"]}, "trace": tr}
         row = sweep.run_cell(workload, scenario, n, seed, engine,
-                             device="cuda")
+                             device="cuda", **kw)
         # run_cell runs the cell twice (warm-up, timed): launches per run
         row["launches_per_run"] = {
             f.__name__: (f.launches - b) // 2
             for f, b in zip(launch_counters, before)}
-        ref = golden_cell(goldens[workload], scenario, n, seed, engine)
+        ref = golden_cell(goldens[workload], scenario, n, seed, engine,
+                          *trace)
         ctx = f"{workload} {scenario} n={n} seed={seed} {engine}"
-        for key in ("events", "check_ok", "check_fails"):
-            if row[key] != ref[key]:
-                raise AssertionError(f"{ctx}: {key} {row[key]} != "
-                                     f"{ref[key]}")
-        if row["counters"] != ref["counters"]:
-            raise AssertionError(f"{ctx}: counters {row['counters']} != "
-                                 f"golden {ref['counters']}")
+        held(ctx, row, ref)
         log(f"  {workload:20s} {scenario:10s} n={n:3d} seed={seed} "
             f"{engine:7s} makespan={row['makespan']} events={row['events']}"
             f" check_ok={row['check_ok']} steady_s={row['steady_s']} "
             f"launches/run={row['launches_per_run']}")
         rows.append(row)
     return rows
+
+
+def counted(launch_counters, fn):
+    """(fn(), {kernel: launches}): the launch counts set to 0 just before
+    the call and read just after it."""
+    for f in launch_counters:
+        f.launches = 0
+    out = fn()
+    return out, {f.__name__: f.launches for f in launch_counters}
+
+
+def app_drivers() -> list:
+    """Phase 4, worksteal's app drivers at the paper's 64 CUs (`run_app`
+    on the card): each golden record's counters, `proc_errors` and
+    iterations exactly, the SSSP and MIS solutions bit for bit, PageRank
+    within rtol 1e-5 (its scatter-add sums in another order)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import graphs
+    from repro_torch.workloads import worksteal
+    doc = load_golden("worksteal")
+    with np.load(os.path.join(ROOT, "src", "repro_torch", "golden",
+                              "worksteal_apps.npz")) as z:
+        sols = {k: z[k] for k in z.files}
+    recs = []
+    for a in doc["apps"]:
+        g = getattr(graphs, a["graph"])(a["n_nodes"])
+        r = worksteal.run_app(a["app"], g, a["scenario"],
+                              worksteal.WSConfig(**a["ws"]),
+                              max_iters=a["max_iters"], engine=a["engine"],
+                              device="cuda")
+        ctx = f"run_app {a['app']} {a['scenario']}"
+        if (r.counters, r.proc_errors, r.iterations) != (
+                a["counters"], a["proc_errors"], a["iterations"]):
+            raise AssertionError(f"{ctx}: {r.counters} errors "
+                                 f"{r.proc_errors} iterations "
+                                 f"{r.iterations} != golden {a}")
+        want = sols[a["solution"]]
+        if a["app"] == "pagerank":
+            err = float(np.max(np.abs(r.solution - want) / np.abs(want)))
+            ok = r.solution.dtype == want.dtype and err <= 1e-5
+        else:
+            err = float(np.max(np.abs(r.solution.astype(np.int64)
+                                      - want.astype(np.int64))))
+            ok = r.solution.dtype == want.dtype and err == 0
+        if not ok:
+            raise AssertionError(f"{ctx}: solution off the golden by {err}")
+        log(f"  {ctx} on {a['graph']}({a['n_nodes']}): makespan="
+            f"{r.makespan} proc_errors={r.proc_errors} iterations="
+            f"{r.iterations} solution err={err} wall_s={r.wall_s}")
+        recs.append({"app": a["app"], "scenario": a["scenario"],
+                     "makespan": r.makespan, "iterations": r.iterations,
+                     "solution_err": err, "wall_s": r.wall_s})
+    torch.cuda.synchronize()
+    return recs
+
+
+def serving_scale(torch, launch_counters) -> dict:
+    """Phase 4, the full-width kv_serving cell (the committed sweep's
+    serving shape: n=64, 256 requests per agent, zipf 1.2, bursty): the
+    port's own trace drawn on the card, held to the reference's
+    (`trace.compare`), and served to a green check (the warm-up; its
+    makespan logged beside the golden one); then
+    the timed run on the reference's trace, held to its golden cell,
+    with the launch counts set to 0 just before it and read just
+    after."""
+    from repro_torch.traffic import trace as TT
+    from repro_torch.workloads import harness, kv_serving
+    ref = next(c for c in load_golden("kv_serving")["cells"]
+               if c["traffic"] == "serving")
+    tr, meta = load_traces()[ref["trace"]]
+    cfg, n = meta["config"], meta["n_agents"]
+    ctx = (f"kv_serving {ref['scenario']} n={n} seed={ref['seed']} "
+           f"{ref['engine']} {cfg}")
+    t0 = time.perf_counter()
+    mine = TT.generate(cfg, n, meta["n_keys"], meta["seed"], "cuda")
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    cmp = TT.compare(mine, tr, n, cfg.requests_per_agent)
+    log(f"  the port's trace on the card ({gen_s:.4f} s) against the "
+        f"reference's: {cmp}")
+    if not cmp["held"]:
+        raise AssertionError(f"{ctx}: the port's trace is not held to the "
+                             f"reference's: {cmp}")
+    run = harness.runner(ref["engine"])
+    own = kv_serving.build(ref["scenario"], n, seed=ref["seed"],
+                           device="cuda", traffic=cfg)
+    own_final = run(own.wl, own.state)
+    own_check = own.check(own_final)
+    own_makespan = harness.counters_dict(own_final.store)["makespan"]
+    log(f"  served on its own trace: ok={own_check['ok']} completed="
+        f"{own_check['completed']} of {own_check['offered']} makespan="
+        f"{own_makespan} (golden, on the reference's trace: "
+        f"{ref['counters']['makespan']})")
+    if not own_check["ok"]:
+        raise AssertionError(f"{ctx}: own trace check {own_check}")
+    bench = kv_serving.with_trace(kv_serving.build(
+        ref["scenario"], n, seed=ref["seed"], device="cuda", traffic=cfg),
+        tr)
+    torch.cuda.synchronize()
+
+    def timed():
+        t = time.perf_counter()
+        final = run(bench.wl, bench.state)
+        torch.cuda.synchronize()
+        return final, time.perf_counter() - t
+
+    (final, steady), launches = counted(launch_counters, timed)
+    check = bench.check(final)
+    row = {"counters": harness.counters_dict(final.store),
+           "events": check["events"], "check_ok": bool(check["ok"]),
+           "check_fails": int(check["check_fails"])}
+    held(ctx, row, ref)
+    log(f"  {ctx}: makespan={row['counters']['makespan']} events="
+        f"{row['events']} check_ok={row['check_ok']} steady_s={steady} "
+        f"launches/run={launches} latency={check['latency']}")
+    return {"cell": ctx, **row, "steady_s": steady,
+            "launches_per_run": launches, "trace_generation_s": gen_s,
+            "trace_compare": cmp, "latency": check["latency"],
+            "own_trace_check": {k: own_check[k] for k in (
+                "ok", "check_fails", "completed", "offered")},
+            "own_trace_makespan": own_makespan}
 
 
 def remote_batches() -> dict:
@@ -418,19 +603,19 @@ def measure(torch, C, SF, FT, errs, launches) -> list:
             for name, recs in shapes.items()]
 
 
-def profile_cell(torch, workload: str, steady_s: float) -> dict:
-    """Phase 6: device busy time of one fused n=64 srsp seed 4 run of
+def profile_cell(torch, workload: str, seed: int, steady_s: float) -> dict:
+    """Phase 6: device busy time of one fused n=64 srsp run of
     `workload`, from torch.profiler's CUDA kernel records, against the
     unprofiled `steady_s` of that cell (phase 4): the device's idle
     share."""
     from repro_torch import workloads
     from repro_torch.workloads import harness
-    bench = workloads.get(workload).build("srsp", N_MAIN, seed=4,
+    bench = workloads.get(workload).build("srsp", N_MAIN, seed=seed,
                                           device="cuda")
     busy_s, kernels = device_busy(
-        torch, lambda: harness.run_fused(bench.wl, bench.state))
+        torch, lambda: harness.run_fused(bench.wl, bench.state, *bench.ops))
     top = sorted(kernels, key=_dev_us, reverse=True)[:8]
-    rec = {"cell": f"{workload} srsp n={N_MAIN} seed=4 fused",
+    rec = {"cell": f"{workload} srsp n={N_MAIN} seed={seed} fused",
            "device_busy_s": busy_s, "steady_s": steady_s,
            "idle_share": 1.0 - busy_s / steady_s,
            "kernel_launches": sum(e.count for e in kernels),
@@ -1013,8 +1198,18 @@ def main(argv=None) -> int:
                    "run_cell")
     counters = (SF.drain_writeback, FT.plane_commit, FT.trip_plan)
     cells = main_cells()
-    rows = run_cells(cells, counters)
-    launches = {f.__name__: f.launches for f in counters}
+    rows, launches = counted(counters, lambda: run_cells(cells, counters))
+    log(f"    launches in the golden cells: {launches}")
+    phase(t_start, "[4] worksteal's app drivers: run_app at the paper's "
+                   "64 CUs")
+    apps, app_launches = counted(counters, app_drivers)
+    log(f"    launches in the app drivers: {app_launches}")
+    phase(t_start, "[4] full-width kv_serving: the committed sweep's "
+                   "serving shape")
+    scale = serving_scale(torch, counters)
+    for name in launches:
+        launches[name] += app_launches[name] \
+            + scale["launches_per_run"][name]
     log(f"    launches on the main path: {launches}")
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the main path never launched: "
@@ -1039,9 +1234,9 @@ def main(argv=None) -> int:
 
     phase(t_start, "[6] where the time goes: one fused n=64 srsp run "
                    "under torch.profiler")
-    prof = [profile_cell(torch, w, rows[cells.index((
-        w, "srsp", N_MAIN, 4, "fused"))]["steady_s"])
-        for w in PROFILED]
+    prof = [profile_cell(torch, w, seed, rows[cells.index((
+        w, "srsp", N_MAIN, seed, "fused"))]["steady_s"])
+        for w, seed in PROFILED]
 
     phase(t_start, "[7] serving path: granite-moe-1b-a400m through "
                    "repro_torch.serve.engine")
@@ -1056,7 +1251,10 @@ def main(argv=None) -> int:
                    "stacked on the card")
     sync_recs, flush_entry = delta_sync_path(torch, SF)
     kernels.append(flush_entry)
-    total_s = time.perf_counter() - t_start
+    t_end = time.perf_counter()
+    total_s = t_end - t_start
+    for msg, secs in phase_times(t_end):
+        log(f"    {secs:8.1f} s  {msg}")
     log(f"    total {total_s:.1f} s")
 
     if args.out:
@@ -1064,6 +1262,7 @@ def main(argv=None) -> int:
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": smi, "build_s": build_s, "cells": rows,
+                       "apps": apps, "serving_scale": scale,
                        "remote_batches": batches,
                        "bool_layout": bool_run,
                        "kernels": kernels, "profile": prof,

@@ -197,6 +197,30 @@ def _rows_where(g, rows):
     return torch.where(g[..., None], rows, rows.new_zeros(()))
 
 
+def plane_scatter_set(plane, lane, b, o):
+    """Bulk flag OR over index triples (the write-combining bulk-store
+    path, worksteal's enqueue scatter), in either layout.  Triples must
+    be distinct; `b` outside [-n_blocks, n_blocks) drops (a negative one
+    counts from the end, as JAX's `mode="drop"` does).  Packed lanes
+    accumulate by add, which equals OR exactly because each (lane, b, o)
+    bit appears at most once; every dropped triple lands in one spare
+    element past the end."""
+    n, nb, lanes = plane.shape
+    lane, b, o = (x.to(torch.int64) for x in (lane, b, o))
+    packed = plane.dtype != torch.bool
+    col = bitmask.word_index(o).to(torch.int64) if packed else o
+    flat = torch.where((b >= -nb) & (b < nb),
+                       (lane * nb + torch.remainder(b, nb)) * lanes + col,
+                       n * nb * lanes)
+    ext = plane.new_zeros(n * nb * lanes + 1)
+    if packed:
+        ext.index_put_((flat,), bitmask.word_bit(o), accumulate=True)
+        return plane | ext[:-1].reshape(plane.shape)
+    ext[:-1] = plane.reshape(-1)
+    ext[flat] = True
+    return ext[:-1].reshape(plane.shape)
+
+
 def _count(c: Counters, **kw) -> Counters:
     return c._replace(**{k: getattr(c, k) + v for k, v in kw.items()})
 

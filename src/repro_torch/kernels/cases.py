@@ -1,6 +1,7 @@
 """Seeded inputs for checking each kernel against its plain version.
 
 One list of cases per kernel: the simulator's shapes at n=64 and n=256
+(worksteal's banks and planes at n=16, n=64 and run_app's 64 CUs too)
 plus the edge cases (duplicate destinations, pads, out-of-range indices
 and offsets, dirty bit 31, a ragged last lane, remote_cap, fences, empty
 masks), the serving path's shapes at granite-moe-1b-a400m's width
@@ -137,6 +138,13 @@ DRAIN_CASES = [
     # row is three 16-byte units
     ("W=48 ragged second lane, dups+pads", dict(nb=64, w=48, m=200,
                                                 oor=True)),
+] + [
+    # worksteal's banks: the golden cells at n=16 and n=64 and run_app at
+    # the paper's 64 CUs (a drain of n*cap rows, a writeback of n)
+    (f"worksteal {where} {op}", dict(nb=nb, w=16, m=m, dup=op == "drain"))
+    for where, nb, n in (("n=16", 64, 16), ("n=64", 640, 64),
+                         ("run_app 64 CUs", 1600, 64))
+    for op, m in (("drain", 16 * n), ("writeback", n))
 ]
 COMMIT_CASES = [
     ("n=64", dict(n=64, nb=128, w=16)),
@@ -147,6 +155,10 @@ COMMIT_CASES = [
     ("slice of 6 words", dict(n=5, nb=3, w=40)),
     ("one lane", dict(n=1, nb=128, w=16)),
     ("every lane on block 0", dict(n=64, nb=128, w=16, block0=True)),
+    # worksteal's planes: the golden cells and run_app at 64 CUs
+    ("worksteal n=16", dict(n=16, nb=64, w=16)),
+    ("worksteal n=64", dict(n=64, nb=640, w=16)),
+    ("worksteal run_app 64 CUs", dict(n=64, nb=1600, w=16)),
 ]
 PLAN_CASES = (
     [(f"n={n} remote_cap={cap} fenced={fenced}",

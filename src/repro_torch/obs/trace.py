@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-N_BUCKETS = 24   # obs/metrics.py latency-histogram buckets
+from repro_torch.obs.metrics import N_BUCKETS
 
 # event kinds
 ACQUIRE, RELEASE, LOAD, STORE, CHURN, RECOVER = range(6)

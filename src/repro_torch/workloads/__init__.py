@@ -2,15 +2,18 @@
 
 Each registered module implements
 `build(scenario, n_agents, seed=0, *, proto=None, device=None, **kw)
--> Bench` and `init_state(wl, seed, device)`.  The port registers four
-of the reference's six: `worksteal` and `kv_serving` are not ported yet.
+-> Bench`; every module but `worksteal` (which enqueues on the host)
+also `init_state(wl, seed, device)`.  The port registers all six of the
+reference's workloads.
 """
 from __future__ import annotations
 
 import importlib
 
 _MODULES = {
+    "worksteal": "repro_torch.workloads.worksteal",
     "kv_directory": "repro_torch.workloads.kv_directory",
+    "kv_serving": "repro_torch.workloads.kv_serving",
     "producer_consumer": "repro_torch.workloads.producer_consumer",
     "producer_consumer_mc": "repro_torch.workloads.producer_consumer_mc",
     "reader_lock": "repro_torch.workloads.reader_lock",

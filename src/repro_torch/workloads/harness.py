@@ -121,6 +121,16 @@ def one_hot(n: int, wg, device) -> torch.Tensor:
                                                              device=device)
 
 
+def add_at(x: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
+    """`x.at[idx].add(vals, mode="drop")` for indices in [0, len(x)]:
+    repeated indices accumulate, index len(x) drops."""
+    ext = torch.cat([x, x.new_zeros(1)])
+    ext.index_put_((idx.long(),), torch.as_tensor(vals, dtype=x.dtype,
+                                                  device=x.device)
+                   .expand(idx.shape), accumulate=True)
+    return ext[:-1]
+
+
 def charge(st: P.Store, mask, cycles) -> P.Store:
     """Add per-agent compute cycles outside the protocol ops."""
     c = st.counters

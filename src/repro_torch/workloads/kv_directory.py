@@ -104,13 +104,6 @@ def _delta(lanes, upd_done, salt):
     return (lanes + 1) + torch.remainder(upd_done * 7 + salt, 5)
 
 
-def _add_drop(x, idx, vals):
-    """`x.at[idx].add(vals, mode="drop")`: index len(x) drops."""
-    ext = torch.cat([x, x.new_zeros(1)])
-    ext[idx.long()] = ext[idx.long()] + vals
-    return ext[:-1]
-
-
 def _local_turn(wl, s: KVState, mask) -> KVState:
     cfg = wl.cfg
     pc = cfg.proto_cfg()
@@ -139,8 +132,8 @@ def _local_turn(wl, s: KVState, mask) -> KVState:
         upd_done=s.upd_done + mask.to(I32),
         look_done=s.look_done,
         upd_quota=s.upd_quota,
-        ver=_add_drop(s.ver, tgt, torch.ones_like(b)),
-        val=_add_drop(s.val, tgt, delta),
+        ver=harness.add_at(s.ver, tgt, torch.ones_like(b)),
+        val=harness.add_at(s.val, tgt, delta),
         salt=s.salt,
         check_fails=s.check_fails + fails,
         rounds=s.rounds + mask.sum(dtype=I32))

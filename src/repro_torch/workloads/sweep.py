@@ -21,16 +21,27 @@ def _sync(device: torch.device) -> None:
 
 
 def run_cell(workload: str, scenario: str, n_agents: int, seed: int,
-             engine: str, device=None) -> dict:
+             engine: str, device=None, build_kw=None, trace=None) -> dict:
     """Sweep-row fields of one cell: makespan, counters, check_ok,
     check_fails, events, and `steady_s`, the wall time of the second
-    (timed) run, ending in a device synchronisation."""
+    (timed) run, ending in a device synchronisation.  `build_kw`
+    overrides workload-config fields (the serving cells' traffic, as the
+    reference's `measure_vmapped` takes it).  `trace`, a kv_serving
+    request trace the reference generated (`traffic.trace.load`),
+    replaces each fresh bench's own streams (`kv_serving.with_trace`):
+    the trace handoff that replays a JAX run bit for bit."""
     dev = common.resolve_device(device)
     mod = workloads.get(workload)
     run = harness.runner(engine)
-    warm = mod.build(scenario, n_agents, seed=seed, device=dev)
+
+    def fresh():
+        b = mod.build(scenario, n_agents, seed=seed, device=dev,
+                      **(build_kw or {}))
+        return b if trace is None else mod.with_trace(b, trace)
+
+    warm = fresh()
     run(warm.wl, warm.state, *warm.ops)
-    bench = mod.build(scenario, n_agents, seed=seed, device=dev)
+    bench = fresh()
     _sync(dev)
     t0 = time.perf_counter()
     final = run(bench.wl, bench.state, *bench.ops)

@@ -422,6 +422,58 @@ def test_serving_kernels_refuse_what_they_do_not_take(cuda):
                                     device=cuda), cache, cache, lens)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "bool"])
+def test_plane_scatter_set_on_card_matches_cpu(cuda, packed):
+    """The enqueue scatter on the card: the CPU result bit for bit, in
+    both layouts, out-of-range blocks dropped."""
+    rng = np.random.default_rng(7)
+    n, nb, w = 64, 40, 16
+    flat = rng.choice(n * nb * w, size=2048, replace=False)
+    lane, rest = np.divmod(flat, nb * w)
+    b, o = np.divmod(rest, w)
+    b[rng.random(b.size) < 0.1] = nb
+    args = [torch.from_numpy(x.astype(np.int32)) for x in (lane, b, o)]
+    flags = torch.from_numpy(rng.random((n, nb, w)) < 0.3)
+    plane = P.bitmask.pack(flags) if packed else flags
+    want = P.plane_scatter_set(plane, *args)
+    got = P.plane_scatter_set(plane.to(cuda), *(a.to(cuda) for a in args))
+    assert torch.equal(got.cpu(), want)
+
+
+def _golden_cell(workload, scenario, n, seed, engine, traffic=None):
+    golden = json.loads((GOLDEN / f"{workload}.json").read_text())
+    return next(c for c in golden["cells"] if (
+        c["scenario"], c["n_agents"], c["seed"], c["engine"],
+        c.get("traffic")) == (scenario, n, seed, engine, traffic))
+
+
+def _same_as_golden(row, want):
+    assert row["counters"] == want["counters"]
+    assert (row["events"], row["check_ok"], row["check_fails"]) \
+        == (want["events"], want["check_ok"], want["check_fails"])
+
+
+@pytest.mark.cuda
+def test_worksteal_cell_on_card(cuda):
+    want = _golden_cell("worksteal", "srsp", 64, 2, "fused")
+    before = FT.trip_plan.launches
+    _same_as_golden(sweep.run_cell("worksteal", "srsp", 64, 2, "fused",
+                                   device=cuda), want)
+    assert FT.trip_plan.launches > before
+
+
+@pytest.mark.cuda
+def test_kv_serving_cell_on_card_replays_the_jax_trace(cuda):
+    from repro_torch.traffic import trace as TT
+    want = _golden_cell("kv_serving", "rsp", 16, 4, "fused", "default")
+    tr, _ = TT.load_set(str(GOLDEN / "kv_serving_traces.npz"),
+                        cuda)[want["trace"]]
+    row = sweep.run_cell("kv_serving", "rsp", 16, 4, "fused", device=cuda,
+                         trace=tr)
+    _same_as_golden(row, want)
+
+
 def test_dispatch_is_by_device():
     """CPU tensors take the plain version and launch nothing; a mix of
     devices is refused."""

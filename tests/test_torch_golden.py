@@ -3,12 +3,23 @@
 `src/repro_torch/golden/<workload>.json` holds the JAX reference's full
 `counters_dict`, `events` and self-check verdict for the cells the port's
 chip smoke run reproduces bitwise on the card, one file per workload:
-kv_directory, reader_lock, producer_consumer and producer_consumer_mc.
-Two checks:
+kv_directory, reader_lock, producer_consumer, producer_consumer_mc,
+worksteal and kv_serving.  Beside them:
+
+* `worksteal.json` also holds the app drivers' records (`run_app` at the
+  paper's 64 CUs: pagerank, sssp and mis under srsp and rsp), and
+  `worksteal_apps.npz` their solutions;
+* `kv_serving_traces.npz` holds the request traces the reference
+  generated for the kv_serving cells (`traffic.trace.save_set`), which
+  the port replays: its own float samplers agree with XLA's to a few
+  ulps, not bit for bit.
+
+Checks:
 
 * tier-1: the golden makespans equal the committed `BENCH_workloads.json`
-  rows (seed 4 at n=16 and n=64, and kv_directory's n=256 `fuse_ab`
-  cell);
+  rows (seed 4 at n=16 and n=64, kv_directory's n=256 `fuse_ab` cell,
+  worksteal's n=64 seed 2 and smoke n=16 seed 1 rows); the golden traces
+  are the reference's draws for their provenance;
 * slow: regenerating every file from the JAX package gives the
   committed cells exactly.
 
@@ -19,11 +30,13 @@ Regenerate the files with
 A file whose cells come out unchanged is left as it is, provenance
 included.
 """
+import dataclasses
 import json
 import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -41,9 +54,32 @@ LOCK_QUEUE_CELLS = ([(s, 64, 4, "fused") for s in ("srsp", "rsp", "baseline")]
                     + [("srsp", 64, 4, "batched"), ("srsp", 16, 4, "serial")]
                     + [(s, 16, 4, "fused") for s in ("rsp", "baseline",
                                                      "scope_only")])
+# worksteal is not vmappable, so the sweep runs it on the host-init path,
+# whose last timed iteration is seed `iters`: seed 2 in the full sweep,
+# seed 1 in the smoke sweep.  steal_only is the fifth scenario.
+WS_CELLS = ([(s, 64, 2, "fused") for s in ("srsp", "rsp", "baseline",
+                                           "scope_only", "steal_only")]
+            + [("srsp", 64, 2, "batched"), ("srsp", 16, 1, "serial")]
+            + [(s, 16, 1, "fused") for s in ("rsp", "baseline",
+                                             "scope_only")])
+# kv_serving: (..., traffic) with the TrafficConfig overrides named by
+# TRAFFIC: the lock and queue grid at the default traffic, plus the
+# committed sweep's serving-scale shape at full width
+TRAFFIC = {"default": {},
+           "serving": {"requests_per_agent": 256, "zipf_s": 1.2,
+                       "gap_mean": 8.0, "burstiness": 4.0}}
+KVS_FULL = ("srsp", 64, 4, "fused", "serving")
+KVS_CELLS = [c + ("default",) for c in LOCK_QUEUE_CELLS] + [KVS_FULL]
 CELLS = {"kv_directory": KV_CELLS, "reader_lock": LOCK_QUEUE_CELLS,
          "producer_consumer": LOCK_QUEUE_CELLS,
-         "producer_consumer_mc": LOCK_QUEUE_CELLS}
+         "producer_consumer_mc": LOCK_QUEUE_CELLS,
+         "worksteal": WS_CELLS, "kv_serving": KVS_CELLS}
+# the app drivers at the paper's 64 CUs: (app, graph); run_app defaults
+APP_WS = {"n_wgs": 64, "chunk_cap": 32, "n_chunks_max": 256}
+APPS = [("pagerank", "collab_like"), ("sssp", "road_like"),
+        ("mis", "router_like")]
+APP_NODES, APP_ITERS = 8192, 2
+APP_SCENARIOS = ("srsp", "rsp")
 # the committed sweep's makespans at seed 4 (BENCH_workloads.json rows):
 # {workload: {(scenario, n): makespan}}
 BENCH_MAKESPANS = {
@@ -63,24 +99,82 @@ def golden_path(workload: str) -> pathlib.Path:
     return GOLDEN_DIR / f"{workload}.json"
 
 
-def golden_from_jax(workload: str) -> dict:
-    """Run every golden cell of `workload` through the JAX reference."""
+TRACES_PATH = GOLDEN_DIR / "kv_serving_traces.npz"
+APPS_PATH = GOLDEN_DIR / "worksteal_apps.npz"
+
+
+def trace_name(n: int, seed: int, traffic: str) -> str:
+    return f"n{n}_seed{seed}_{traffic}"
+
+
+def jax_traces(cells=None) -> dict:
+    """The reference's request trace of every kv_serving cell, as
+    `traffic.trace.save_set` takes them (the installed JAX's PRNG
+    layout)."""
+    from repro.traffic import trace as JT
+    from repro.workloads import kv_serving
+
+    out = {}
+    for _, n, seed, _, traffic in cells or CELLS["kv_serving"]:
+        cfg = kv_serving.Config(n_agents=n, traffic=dataclasses.replace(
+            kv_serving.S.TrafficConfig(), **TRAFFIC[traffic]))
+        out[trace_name(n, seed, traffic)] = {
+            "tr": JT.generate(cfg.traffic, n, cfg.n_pages, seed),
+            "cfg": cfg.traffic, "n_agents": n, "n_keys": cfg.n_pages,
+            "seed": seed}
+    return out
+
+
+def jax_apps() -> tuple:
+    """The app drivers through the JAX reference: (records, solutions)."""
+    from repro.data import graphs
+    from repro.workloads import worksteal
+
+    ws = worksteal.WSConfig(**APP_WS)
+    recs, sols = [], {}
+    for app, graph in APPS:
+        g = getattr(graphs, graph)(APP_NODES)
+        for scenario in APP_SCENARIOS:
+            r = worksteal.run_app(app, g, scenario, ws, max_iters=APP_ITERS)
+            name = f"{app}_{scenario}"
+            recs.append({"app": app, "scenario": scenario, "graph": graph,
+                         "n_nodes": APP_NODES, "max_iters": APP_ITERS,
+                         "ws": APP_WS, "engine": "batched",
+                         "counters": r.counters,
+                         "proc_errors": int(r.proc_errors),
+                         "iterations": int(r.iterations),
+                         "solution": name})
+            sols[name] = np.asarray(r.solution)
+    return recs, sols
+
+
+def golden_from_jax(workload: str, cells=None) -> dict:
+    """Run every golden cell of `workload` (or `cells`) through the JAX
+    reference."""
     from repro import workloads
     from repro.workloads import harness
 
     mod = workloads.get(workload)
-    cells = []
-    for scenario, n, seed, engine in CELLS[workload]:
-        bench = mod.build(scenario, n, seed=seed)
+    out = []
+    for cell in cells or CELLS[workload]:
+        scenario, n, seed, engine = cell[:4]
+        extra, kw = {}, {}
+        if workload == "kv_serving":
+            traffic = cell[4]
+            kw["traffic"] = dataclasses.replace(
+                mod.S.TrafficConfig(), **TRAFFIC[traffic])
+            extra = {"traffic": traffic,
+                     "trace": trace_name(n, seed, traffic)}
+        bench = mod.build(scenario, n, seed=seed, **kw)
         final = harness.runner(engine)(bench.wl, bench.state, *bench.ops)
         check = bench.check(final)
-        cells.append({"scenario": scenario, "n_agents": n, "seed": seed,
-                      "engine": engine,
-                      "counters": harness.counters_dict(final.store),
-                      "events": check["events"],
-                      "check_ok": bool(check["ok"]),
-                      "check_fails": int(check["check_fails"])})
-    return {"cells": cells}
+        out.append({"scenario": scenario, "n_agents": n, "seed": seed,
+                    "engine": engine, **extra,
+                    "counters": harness.counters_dict(final.store),
+                    "events": check["events"],
+                    "check_ok": bool(check["ok"]),
+                    "check_fails": int(check["check_fails"])})
+    return {"cells": out}
 
 
 def _provenance(workload: str) -> dict:
@@ -91,11 +185,18 @@ def _provenance(workload: str) -> dict:
     except (OSError, subprocess.CalledProcessError):
         commit = None
     engines = sorted({c[3] for c in CELLS[workload]})
-    return {"reference": f"repro (JAX) {workload}, harness.runner(engine), "
+    prov = {"reference": f"repro (JAX) {workload}, harness.runner(engine), "
                          "CPU backend, kernel_mode ref",
             "jax_commit": commit,
             "engine": engines[0] if len(engines) == 1 else engines,
             "generator": "tests/test_torch_golden.py --write"}
+    if workload in ("worksteal", "kv_serving"):
+        import jax
+        prov["prng_layout"] = (
+            "jax_threefry_partitionable="
+            f"{bool(jax.config.jax_threefry_partitionable)} (the installed "
+            f"JAX {jax.__version__}'s default)")
+    return prov
 
 
 def _golden(workload: str) -> dict:
@@ -105,7 +206,7 @@ def _golden(workload: str) -> dict:
 def _cell(doc, scenario, n, seed, engine="fused"):
     return next(c for c in doc["cells"] if (
         c["scenario"], c["n_agents"], c["seed"], c["engine"])
-        == (scenario, n, seed, engine))
+        == (scenario, n, seed, engine) and c.get("traffic") != "serving")
 
 
 def _bench_rows(workload):
@@ -160,20 +261,152 @@ def test_lock_queue_golden_matches_committed_bench(workload):
                if c["scenario"] != "scope_only")
 
 
+# the committed worksteal rows: {(doc, scenario, n): makespan}; worksteal
+# runs one replica, so a row's counters are the cell's
+WS_MAKESPANS = {
+    ("BENCH_workloads.json", "srsp", 64): 2235.5,
+    ("BENCH_workloads.json", "rsp", 64): 7100.5,
+    ("BENCH_workloads.json", "baseline", 64): 24568.5,
+    ("BENCH_workloads.json", "scope_only", 64): 15384.0,
+    ("BENCH_workloads.smoke.json", "srsp", 16): 1336.0,
+    ("BENCH_workloads.smoke.json", "rsp", 16): 2481.0,
+    ("BENCH_workloads.smoke.json", "baseline", 16): 5951.0,
+    ("BENCH_workloads.smoke.json", "scope_only", 16): 3678.0,
+}
+
+
+def test_worksteal_golden_matches_committed_bench():
+    doc = _golden("worksteal")
+    assert {(c["scenario"], c["n_agents"], c["seed"], c["engine"])
+            for c in doc["cells"]} == set(WS_CELLS)
+    for (bench_doc, scenario, n), makespan in WS_MAKESPANS.items():
+        bench = json.loads((ROOT / bench_doc).read_text())
+        row = next(r for r in bench["runs"] if (
+            r["workload"], r["scenario"], r["n_agents"], r["engine"])
+            == ("worksteal", scenario, n, "batched"))
+        seed = 2 if n == 64 else 1
+        for c in doc["cells"]:
+            if (c["scenario"], c["n_agents"], c["seed"]) == (scenario, n,
+                                                             seed):
+                ctx = (scenario, n, c["engine"])
+                assert c["counters"] == row["counters"], ctx
+                assert c["counters"]["makespan"] == makespan, ctx
+                assert (c["events"], c["check_ok"]) \
+                    == (row["events"], row["check_ok"]), ctx
+    assert all(c["check_ok"] and c["check_fails"] == 0
+               for c in doc["cells"])
+    assert _cell(doc, "steal_only", 64, 2)["counters"]["steals"] > 0
+
+
+def test_worksteal_app_golden_solutions_are_the_oracle():
+    """Every app record is complete and its solution is the
+    single-thread oracle's (sssp/mis exactly, pagerank within 1e-5)."""
+    pytest.importorskip("torch")
+    from repro_torch.data import graphs
+    from repro_torch.workloads import worksteal
+
+    doc = _golden("worksteal")
+    assert [(a["app"], a["scenario"]) for a in doc["apps"]] \
+        == [(app, s) for app, _ in APPS for s in APP_SCENARIOS]
+    with np.load(APPS_PATH) as z:
+        sols = {k: z[k] for k in z.files}
+    assert sorted(sols) == sorted(a["solution"] for a in doc["apps"])
+    for a in doc["apps"]:
+        assert (a["proc_errors"], a["ws"], a["max_iters"]) \
+            == (0, APP_WS, APP_ITERS)
+        g = getattr(graphs, a["graph"])(a["n_nodes"])
+        ref = worksteal.reference_solution(a["app"], g, a["max_iters"])
+        got = sols[a["solution"]]
+        assert got.dtype == ref.dtype and got.shape == (g.n,)
+        if a["app"] == "pagerank":
+            np.testing.assert_allclose(got, ref, rtol=1e-5)
+        else:
+            np.testing.assert_array_equal(got, ref)
+
+
+def test_kv_serving_golden_cells():
+    doc = _golden("kv_serving")
+    assert [(c["scenario"], c["n_agents"], c["seed"], c["engine"],
+             c["traffic"]) for c in doc["cells"]] == KVS_CELLS
+    for c in doc["cells"]:
+        assert c["trace"] == trace_name(c["n_agents"], c["seed"],
+                                        c["traffic"])
+        assert c["check_ok"] == (c["scenario"] != "scope_only"), c
+    fused, batched = (_cell(doc, "srsp", 64, 4, e) for e in ("fused",
+                                                             "batched"))
+    assert fused["counters"] == batched["counters"]
+    full = doc["cells"][-1]
+    assert full["events"] == 64 * TRAFFIC["serving"]["requests_per_agent"]
+
+
+def test_kv_serving_golden_traces_are_jax_and_held_by_the_port():
+    """Each stored trace is the JAX draw of its provenance, bit for bit,
+    and the port's own draw is held to it (`trace.compare`)."""
+    pytest.importorskip("torch")
+    from repro.traffic import trace as JT
+    from repro_torch.traffic import trace as TT
+
+    stored = TT.load_set(str(TRACES_PATH), "cpu")
+    assert sorted(stored) == sorted({c["trace"] for c in
+                                     _golden("kv_serving")["cells"]})
+    for name, (tr, meta) in stored.items():
+        cfg, n = meta["config"], meta["n_agents"]
+        want = JT.generate(cfg, n, meta["n_keys"], meta["seed"])
+        for a, b in zip(tr, want):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        got = TT.generate(cfg, n, meta["n_keys"], meta["seed"], "cpu")
+        res = TT.compare(got, tr, n, cfg.requests_per_agent)
+        print(name, res)
+        assert res["held"], (name, res)
+
+
 @pytest.mark.slow
 @pytest.mark.parametrize("workload", sorted(CELLS))
 def test_golden_regenerates_from_jax(workload):
-    assert golden_from_jax(workload)["cells"] == _golden(workload)["cells"]
+    """Every cell but kv_serving's full-width one (its own slow test)."""
+    cells = [c for c in CELLS[workload] if c != KVS_FULL]
+    want = [c for c in _golden(workload)["cells"]
+            if c.get("traffic") != KVS_FULL[4]]
+    assert golden_from_jax(workload, cells)["cells"] == want
+
+
+@pytest.mark.slow
+def test_kv_serving_full_width_golden_regenerates_from_jax():
+    got = golden_from_jax("kv_serving", [KVS_FULL])["cells"]
+    assert got == _golden("kv_serving")["cells"][-1:]
+    want = jax_traces([KVS_FULL])
+    stored = np.load(TRACES_PATH)
+    for name, t in want.items():
+        for f in ("arrival", "key", "kind", "agent"):
+            np.testing.assert_array_equal(stored[f"{name}/{f}"],
+                                          np.asarray(getattr(t["tr"], f)))
+
+
+@pytest.mark.slow
+def test_worksteal_apps_golden_regenerate_from_jax():
+    recs, sols = jax_apps()
+    assert recs == _golden("worksteal")["apps"]
+    with np.load(APPS_PATH) as z:
+        for name, sol in sols.items():
+            np.testing.assert_array_equal(z[name], sol)
 
 
 def write(workload: str) -> None:
     path = golden_path(workload)
-    cells = golden_from_jax(workload)["cells"]
-    if path.exists() and _golden(workload)["cells"] == cells:
+    doc = golden_from_jax(workload)
+    if workload == "worksteal":
+        doc["apps"], sols = jax_apps()
+    if path.exists() and {k: v for k, v in _golden(workload).items()
+                          if k != "provenance"} == doc:
         print(f"{path}: unchanged")
         return
-    doc = {"provenance": _provenance(workload), "cells": cells}
-    path.write_text(json.dumps(doc, indent=1) + "\n")
+    if workload == "worksteal":
+        np.savez_compressed(APPS_PATH, **sols)
+    if workload == "kv_serving":
+        from repro_torch.traffic import trace as TT
+        TT.save_set(str(TRACES_PATH), jax_traces())
+    path.write_text(json.dumps({"provenance": _provenance(workload), **doc},
+                               indent=1) + "\n")
     print(f"wrote {path}")
 
 

@@ -36,6 +36,8 @@ def test_the_walk_sees_the_port():
             "moe.py", "attention.py", "engine.py", "golden.py",
             "hier_sync.py", "compress.py", "delta_sync.py", "reader_lock.py",
             "producer_consumer.py", "producer_consumer_mc.py",
-            "faults.py"} <= names
+            "faults.py", "prng.py", "graphs.py", "worksteal.py",
+            "metrics.py", "samplers.py", "driver.py",
+            "kv_serving.py"} <= names
     assert _forbidden("repro.core") and _forbidden("jax.numpy")
     assert not _forbidden("repro_torch.core")

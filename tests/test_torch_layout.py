@@ -5,8 +5,10 @@ JAX package does, and every layout-aware helper takes its branch from
 the plane's dtype, so these tests build bool stores in-process by
 setting `protocol.PACKED` to False.  At n=8:
 
-* kv_directory and the lock and queue workloads under srsp, bool planes
-  in the port against the JAX package's packed run: every leaf but the
+* every registered workload under srsp, bool planes in the port
+  against the JAX package's packed run (kv_serving replays the JAX
+  trace; worksteal's enqueue scatter takes `plane_scatter_set`'s bool
+  branch): every leaf but the
   planes bit for bit, the planes equal to JAX's `wvalid_bool` /
   `wdirty_bool` views, and the same counters, `events` and check;
 * `drain_writeback` under a bool mask against the JAX package's
@@ -34,6 +36,7 @@ from repro.core import protocol as JP  # noqa: E402
 from repro.kernels.fused_turn.ref import plane_commit_ref  # noqa: E402
 from repro.kernels.selective_flush.kernel import (  # noqa: E402
     drain_writeback_pallas)
+from repro.traffic import trace as JT  # noqa: E402
 from repro.workloads import harness as jharness  # noqa: E402
 from repro_torch import convert, workloads  # noqa: E402
 from repro_torch.core import bitmask  # noqa: E402
@@ -41,14 +44,15 @@ from repro_torch.core import protocol as P  # noqa: E402
 from repro_torch.kernels import cases as C  # noqa: E402
 from repro_torch.kernels.fused_turn import ops as FT  # noqa: E402
 from repro_torch.kernels.selective_flush import ops as SF  # noqa: E402
-from repro_torch.workloads import harness  # noqa: E402
+from repro_torch.traffic import trace as TR  # noqa: E402
+from repro_torch.workloads import harness, kv_serving  # noqa: E402
 
 torch.use_deterministic_algorithms(True)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 N, SEED = 8, 3
 NAMES = ["kv_directory", "reader_lock", "producer_consumer",
-         "producer_consumer_mc"]
+         "producer_consumer_mc", "worksteal", "kv_serving"]
 
 
 @pytest.fixture
@@ -56,8 +60,13 @@ def bool_layout(monkeypatch):
     monkeypatch.setattr(P, "PACKED", False)
 
 
-def _bool_run(name, engine="fused"):
+def _bool_run(name, engine="fused", jb=None):
     b = workloads.get(name).build("srsp", N, seed=SEED, device="cpu")
+    if name == "kv_serving":       # replay the JAX bench's trace
+        cfg = jb.wl.cfg
+        jt = JT.generate(cfg.traffic, N, cfg.n_pages, SEED)
+        b = kv_serving.with_trace(b, TR.RequestTrace(
+            *(torch.from_numpy(np.array(c)) for c in jt)))
     assert b.state.store.wvalid.dtype == torch.bool
     final = harness.runner(engine)(b.wl, b.state, *b.ops)
     return final, b.check(final)
@@ -75,15 +84,16 @@ def test_layout_follows_packed(bool_layout):
 @pytest.mark.parametrize("name", NAMES)
 def test_bool_layout_gives_the_packed_results(bool_layout, name):
     """Port bool planes == JAX packed planes seen as bool; every other
-    leaf bit for bit.  producer_consumer_mc co-schedules drains, whose
-    PA-TBL differs from the serial run's (DESIGN.md §9): its JAX run is
-    the fused engine, as the port's."""
-    jengine = "fused" if name == "producer_consumer_mc" else "serial"
+    leaf bit for bit.  producer_consumer_mc and kv_serving co-schedule
+    remote turns, whose PA-TBL differs from the serial run's (DESIGN.md
+    §9): their JAX run is the fused engine, as the port's."""
+    jengine = ("fused" if name in ("producer_consumer_mc", "kv_serving")
+               else "serial")
     jb = jworkloads.get(name).build("srsp", N, seed=SEED)
     assert jb.state.store.wvalid.dtype == jnp.uint32
     jfinal = jharness.runner(jengine)(jb.wl, jb.state, *jb.ops)
     jcheck = jb.check(jfinal)
-    tfinal, tcheck = _bool_run(name)
+    tfinal, tcheck = _bool_run(name, jb=jb)
     assert tcheck == jcheck and tcheck["ok"]
     assert harness.counters_dict(tfinal.store) \
         == jharness.counters_dict(jfinal.store)
