@@ -37,14 +37,28 @@ Phases, each fatal on failure:
      the reference's (`trace.compare`: keys and kinds exact, arrival
      clocks within `arrival_rtol`) and served to a green check, then
      the timed run on the reference's trace, held to its golden cell.
+     Then the elastic engines (`golden/churn.json`, written by the JAX
+     reference): crash red/green pairs (a crash fault of
+     `workloads.faults` with the recovery drain `b_recover` on, and
+     under `lease_never_expires`) of kv_directory, reader_lock,
+     producer_consumer, kv_serving (its golden trace) and worksteal at
+     n=64 and at the n=4 pins, the sweep's two churned rows through
+     `sweep.run_churned_cell` (worksteal 1179.5; kv_serving 2307.369873046875
+     on its legacy-layout trace), a zero-churn kv_directory n=64 cell
+     (also equal to kv_directory's golden fused cell) and leave/join
+     cells (n=64 batched, n=16 serial and batched), each held with `==`
+     (counters, check, done/completed/offered, recoveries, the final
+     alive mask), with its `steady_s`, loop passes and drain_writeback /
+     plane_commit launches per run logged (zeroed before each cell).
      Every kernel must have launched in these paths, each path's launch
      counts set to 0 just before it and read just after.  Then one fused
      producer_consumer_mc srsp n=64 run records the size of each
      co-scheduled remote batch: some must hold two or more drains.  Then
      the bool metadata layout: a child process with REPRO_NO_PACK=1 runs
      kv_directory, the three lock and queue workloads, worksteal (seed
-     2) and kv_serving (its golden trace) at n=64 srsp fused, held to
-     the same golden cells, with the launch counts set to 0 first: the
+     2) and kv_serving (its golden trace) at n=64 srsp fused and the
+     kv_directory n=64 crash_dirty red/green pair of `churn.json`, held
+     to the same golden cells, with the launch counts set to 0 first: the
      bool drain kernel and trip_plan must launch (bool planes take
      plane_commit's plain version, as in the reference), the packed
      drain kernel must not; the child's failure fails the run;
@@ -148,6 +162,15 @@ TRACES = os.path.join(ROOT, "src", "repro_torch", "golden",
 # half its time limit
 PROFILED = (("kv_directory", 4), ("producer_consumer_mc", 4),
             ("worksteal", 2))
+# the churn cells the bool-layout child runs (names in golden/churn.json)
+BOOL_CHURN = ("kv_directory n=64 seed=4 batched_elastic crash_dirty@2:60.0 "
+              "crash@120.0 green",
+              "kv_directory n=64 seed=4 batched_elastic crash_dirty@2:60.0 "
+              "crash@120.0 red")
+# the sweep's churned rows (`sweep.run_churned_cell`) among the churn cells:
+# {which: (workload, n_agents, layout of its trace)}
+CHURNED_ROWS = {"worksteal": ("worksteal", 4, "partitionable"),
+                "kv_serving": ("kv_serving", 4, "legacy")}
 # the bool-layout child's cells
 BOOL_CELLS = ([(w, "srsp", N_MAIN, 4, "fused")
                for w in ("kv_directory",) + LOCK_QUEUE]
@@ -362,6 +385,120 @@ def counted(launch_counters, fn):
     return out, {f.__name__: f.launches for f in launch_counters}
 
 
+def churn_proto(cell):
+    """A churn cell's protocol: srsp, its crash fault of
+    `workloads.faults`, and `lease_never_expires` for a red cell."""
+    from repro_torch.core import protocol as P
+    from repro_torch.workloads import faults
+    proto = P.get_protocol(cell["scenario"])
+    if cell["fault"]:
+        name, victim, at = cell["fault"]
+        proto = getattr(faults, name)(proto, victim, at)
+    return proto if cell["recovery"] else faults.lease_never_expires(proto)
+
+
+def churned_row(cell) -> str:
+    """The `run_churned_cell` name of a cell that is one of the sweep's
+    churned rows (green), else None."""
+    return next((w for w, (wl, n, layout) in CHURNED_ROWS.items()
+                 if cell["recovery"] and cell["fault"]
+                 and (cell["workload"], cell["n_agents"], cell["layout"])
+                 == (wl, n, layout)), None)
+
+
+def run_churn(names=None, launch_counters=()) -> list:
+    """The cells of `golden/churn.json` (or those `names`) on the card,
+    each through `sweep.run_cell` (the sweep's churned rows through
+    `sweep.run_churned_cell`) and held with `==` to its golden cell:
+    counters, events, check verdict and failures, done / completed /
+    offered, recoveries and the final alive mask.  Each cell runs once,
+    with no warm-up (the kernels are built and loaded by then).  Logs
+    each cell's `steady_s`, loop passes and launches (each count read
+    before and after the cell), and requires
+    drain_writeback and plane_commit launches in every cell where they
+    are among `launch_counters`.
+    The zero-churn cell must also equal kv_directory's golden fused cell.
+    Raises on any difference."""
+    from repro_torch.workloads import harness, sweep
+    cells = [c for c in load_golden("churn")["cells"]
+             if names is None or c["name"] in names]
+    traces = load_traces()
+    passes = [0]
+    trip = harness._elastic_trip
+
+    def counted_trip(*a, **kw):
+        passes[0] += 1
+        return trip(*a, **kw)
+
+    harness._elastic_trip = counted_trip
+    rows = []
+    try:
+        for cell in cells:
+            kw = dict(cell["build_kw"])
+            tr = None
+            if "trace" in cell:
+                tr, meta = traces[cell["trace"]]
+                kw["traffic"] = meta["config"]
+            before = [f.launches for f in launch_counters]
+            passes[0] = 0
+            which = churned_row(cell)
+            if which:
+                r = sweep.run_churned_cell(which, "cuda", trace=tr,
+                                           warmup=False)
+                row = {"counters": r["counters"], "check_ok": r["check_ok"],
+                       "check_fails": r["lost_updates"],
+                       "completed": r["completed"],
+                       "recovered": r["recovered"], "steady_s":
+                       r["steady_s"]}
+                got = {k: row[k] for k in ("counters", "check_ok",
+                                           "check_fails", "completed")}
+                got["recoveries"] = row["recovered"]
+            else:
+                row = sweep.run_cell(
+                    cell["workload"], cell["scenario"], cell["n_agents"],
+                    cell["seed"], cell["engine"], device="cuda",
+                    build_kw=kw, trace=tr,
+                    events=[tuple(e) for e in cell["churn"]],
+                    lease=cell["lease"], proto=churn_proto(cell),
+                    warmup=False)
+                got = {k: row[k] for k in ("counters", "events", "check_ok",
+                                           "check_fails", "done",
+                                           "completed", "offered", "alive")}
+                got["recoveries"] = row["recovered"]
+            for key, val in got.items():
+                if val != cell[key]:
+                    raise AssertionError(f"{cell['name']}: {key} {val} != "
+                                         f"golden {cell[key]}")
+            launches = {f.__name__: f.launches - b
+                        for f, b in zip(launch_counters, before)}
+            if not all(launches.get(k, 1) for k in ("drain_writeback",
+                                                    "plane_commit")):
+                raise AssertionError(f"{cell['name']}: launches {launches}")
+            rec = {"cell": cell["name"], "via": "run_churned_cell"
+                   if which else "run_cell",
+                   "makespan": row["counters"]["makespan"],
+                   "check_ok": row["check_ok"],
+                   "recoveries": got["recoveries"],
+                   "steady_s": row["steady_s"],
+                   "passes": passes[0], "launches": launches}
+            log(f"  {cell['name']}: makespan={rec['makespan']} "
+                f"check_ok={rec['check_ok']} recoveries={rec['recoveries']}"
+                f" steady_s={rec['steady_s']} passes={rec['passes']} "
+                f"launches={launches}"
+                + (f" [{rec['via']}]" if which else ""))
+            rows.append(rec)
+    finally:
+        harness._elastic_trip = trip
+    if names is None:
+        zero = next(c for c in cells if not c["churn"])
+        kv = golden_cell(load_golden("kv_directory"), "srsp", N_MAIN, 4,
+                         "fused")
+        if zero["counters"] != kv["counters"]:
+            raise AssertionError("the zero-churn cell left kv_directory's "
+                                 "golden counters")
+    return rows
+
+
 def app_drivers() -> list:
     """Phase 4, worksteal's app drivers at the paper's 64 CUs (`run_app`
     on the card): each golden record's counters, `proc_errors` and
@@ -525,7 +662,17 @@ def bool_layout_child(torch, SF, FT) -> int:
         raise AssertionError(f"bool layout launches {launches}: want the "
                              f"bool drain kernel and trip_plan, no packed "
                              f"drain")
-    print(json.dumps({"rows": rows, "launches": launches}))
+    churn, churn_launches = counted(
+        counters, lambda: run_churn(BOOL_CHURN, (SF.drain_writeback_bool,)))
+    if not churn_launches["drain_writeback_bool"] \
+            or churn_launches["drain_writeback"]:
+        raise AssertionError(f"bool layout churn launches {churn_launches}"
+                             f": want the bool drain kernel, no packed "
+                             f"drain")
+    log(f"    launches in the bool-layout churn cells: {churn_launches}")
+    for name in launches:
+        launches[name] += churn_launches[name]
+    print(json.dumps({"rows": rows, "churn": churn, "launches": launches}))
     return 0
 
 
@@ -1207,9 +1354,14 @@ def main(argv=None) -> int:
     phase(t_start, "[4] full-width kv_serving: the committed sweep's "
                    "serving shape")
     scale = serving_scale(torch, counters)
+    phase(t_start, "[4] elastic engines: crash red/green, zero churn, "
+                   "leave/join (golden/churn.json)")
+    churn, churn_launches = counted(counters,
+                                    lambda: run_churn(None, counters[:2]))
+    log(f"    launches in the churn cells: {churn_launches}")
     for name in launches:
         launches[name] += app_launches[name] \
-            + scale["launches_per_run"][name]
+            + scale["launches_per_run"][name] + churn_launches[name]
     log(f"    launches on the main path: {launches}")
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the main path never launched: "
@@ -1263,6 +1415,7 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump({"card": smi, "build_s": build_s, "cells": rows,
                        "apps": apps, "serving_scale": scale,
+                       "churn": churn,
                        "remote_batches": batches,
                        "bool_layout": bool_run,
                        "kernels": kernels, "profile": prof,

@@ -1,9 +1,11 @@
 """State carry-over between the JAX package and the port.
 
 `from_numpy(tree, device)` turns a JAX state (a `Store`, a workload's
-state `KVState`, `RLState`, `PCState`, `SimState` or `ServeState`, a
-cross-pod `BankSyncState` or `EFState`, or any of their sub-tuples, with its leaves as numpy arrays)
-into the port's NamedTuple of the same name, field for field.
+state `KVState`, `RLState`, `PCState`, `SimState` or `ServeState`, the
+elastic engines' `ElasticState` and `ChurnSchedule`, a cross-pod
+`BankSyncState` or `EFState`, or any of their sub-tuples, with its
+leaves as numpy arrays) into the port's NamedTuple of the same name,
+field for field.
 `to_numpy(tree)` is the inverse: the port's tree with numpy leaves.  The
 packed metadata planes are `uint32` in the JAX package and int32 bit
 patterns in the port; both directions reinterpret them bit for bit.  Bool
@@ -28,15 +30,15 @@ from repro_torch.distributed import compress, hier_sync
 from repro_torch.kernels import common
 from repro_torch.obs import trace
 from repro_torch.traffic import driver
-from repro_torch.workloads import kv_directory, kv_serving, \
+from repro_torch.workloads import harness, kv_directory, kv_serving, \
     producer_consumer, reader_lock, worksteal
 
 TYPES = {t.__name__: t for t in (
     protocol.Store, protocol.Lease, sfifo.SFifo, tables.LRTbl, tables.PATbl,
     costmodel.Counters, trace.TraceLog, kv_directory.KVState,
     reader_lock.RLState, producer_consumer.PCState, worksteal.SimState,
-    kv_serving.ServeState, driver.AgentStreams,
-    hier_sync.BankSyncState, compress.EFState)}
+    kv_serving.ServeState, driver.AgentStreams, harness.ElasticState,
+    harness.ChurnSchedule, hier_sync.BankSyncState, compress.EFState)}
 PLANES = ("wvalid", "wdirty")   # uint32 in JAX, int32 bit patterns here
 
 

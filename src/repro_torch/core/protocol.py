@@ -29,9 +29,9 @@ host on a scalar read back from the device.
 Two API layers, as in the JAX package: batched multi-cache ops (`b_*`,
 `*_b`: an `active [n_caches]` mask plus per-cache operands) and the
 classic single-cache wrappers (`load`, `store_word`, `local_acquire`,
-...).  The three kernels of this path: `drain_writeback` (every drain and
-writeback), `plane_commit` (every store's metadata planes) and, in the
-harness, `trip_plan`.
+...).  The three kernels of this path: `drain_writeback` (every drain,
+writeback and crash recovery), `plane_commit` (every store's metadata
+planes) and, in the harness, `trip_plan`.
 """
 from __future__ import annotations
 
@@ -325,6 +325,28 @@ def b_invalidate(cfg: ProtoConfig, st: Store, mask) -> Store:
     c = _count(st.counters, cycles=fmask * cfg.params.inv_flash,
                inv_full=fmask.sum(), inv_per_cache=fmask)
     return st._replace(wvalid=wvalid, lr=lr, pa=pa, counters=c)
+
+
+def b_recover(cfg: ProtoConfig, st: Store, mask) -> Store:
+    """Crash-recovery drain for every cache in `mask` (dead agents whose
+    lease expired, DESIGN.md §10): drain, writeback and flash-invalidate
+    the dead cache and clear its LR/PA entries (`b_invalidate`, so the
+    `drain_writeback` kernel reclaims its dirty words whether an LR entry
+    covers them or not); force-release its leased sync word at L2 (a
+    plain ST 0, not a CAS); clear the lease and count one recovery per
+    reclaimed cache."""
+    mask = _bool(cfg, st, mask)
+    clock0 = st.counters.cycles
+    la = st.lease.addr
+    st = b_invalidate(cfg, st, mask)
+    st, _ = b_atomic_l2(cfg, st, mask & (la >= 0), la.clamp(min=0), 0, 0,
+                        False)
+    st = lease_clear(st, mask)
+    st = st._replace(counters=_count(st.counters,
+                                     recoveries=mask.to(F32).sum()))
+    return obs.record_event(st, mask, obs.RECOVER, obs.OC_RECOVER,
+                            addr=la, clock=clock0,
+                            cycles=st.counters.cycles - clock0)
 
 
 # --------------------------------------------------------------------------
@@ -720,8 +742,10 @@ class Protocol:
     """A registered scope-parametric op table (DESIGN.md §9): per scope,
     a masked multi-agent op (`*_b`) and the scalar single-cache op.
     `acquire_rem_b`/`release_rem_b` are the batched address-disjoint
-    remote twins (None: remote turns serialize).  `crash_gate` is the
-    crash fault's (victim, at); None is a healthy protocol."""
+    remote twins (None: remote turns serialize).  `recover_b(cfg, st,
+    mask)` is the elastic engines' crash-recovery drain (None: a dead
+    agent's lease never expires).  `crash_gate` is the crash fault's
+    (victim, at); None is a healthy protocol."""
     name: str
     acquire_loc_b: Callable
     release_loc_b: Callable
@@ -735,6 +759,7 @@ class Protocol:
     release_glob: Callable
     acquire_rem_b: Callable = None
     release_rem_b: Callable = None
+    recover_b: Callable = None
     crash_gate: tuple = None
 
     @property
@@ -783,7 +808,8 @@ SRSP = register_protocol(Protocol(
     acquire_glob_b=global_acquire_b, release_glob_b=global_release_b,
     acquire_glob=global_acquire, release_glob=global_release,
     acquire_rem_b=srsp_remote_acquire_b,
-    release_rem_b=srsp_remote_release_b))
+    release_rem_b=srsp_remote_release_b,
+    recover_b=b_recover))
 
 # Original RSP's remote ops touch every cache: no batched remote twin.
 RSP = register_protocol(Protocol(
@@ -792,7 +818,8 @@ RSP = register_protocol(Protocol(
     acquire_loc=local_acquire, release_loc=local_release,
     acquire_rem=rsp_remote_acquire, release_rem=rsp_remote_release,
     acquire_glob_b=global_acquire_b, release_glob_b=global_release_b,
-    acquire_glob=global_acquire, release_glob=global_release))
+    acquire_glob=global_acquire, release_glob=global_release,
+    recover_b=b_recover))
 
 # Baseline: every scope realized as global sync.
 GLOBAL = register_protocol(Protocol(
@@ -802,7 +829,8 @@ GLOBAL = register_protocol(Protocol(
     acquire_rem=global_acquire, release_rem=global_release,
     acquire_glob_b=global_acquire_b, release_glob_b=global_release_b,
     acquire_glob=global_acquire, release_glob=global_release,
-    acquire_rem_b=global_acquire_b, release_rem_b=global_release_b))
+    acquire_rem_b=global_acquire_b, release_rem_b=global_release_b,
+    recover_b=b_recover))
 
 # NOT remote-safe: REMOTE scope realized as local sync (staleness demo).
 LOCAL_ONLY = register_protocol(Protocol(
@@ -812,4 +840,5 @@ LOCAL_ONLY = register_protocol(Protocol(
     acquire_rem=local_acquire, release_rem=local_release,
     acquire_glob_b=global_acquire_b, release_glob_b=global_release_b,
     acquire_glob=global_acquire, release_glob=global_release,
-    acquire_rem_b=local_acquire_b, release_rem_b=local_release_b))
+    acquire_rem_b=local_acquire_b, release_rem_b=local_release_b,
+    recover_b=b_recover))

@@ -45,14 +45,19 @@ def unpack_bits(lanes, w):
 
 
 def dw_inputs(seed, nb, w, m, *, dup=True, pad=True, oor=False, hot=(),
-              bool_mask=False):
+              recovery=None, bool_mask=False):
     """drain_writeback (l2, rows, dirty, idx).  dup=False draws distinct
     destinations (the b_writeback shape); pads are -1; out-of-range
     destinations are >= nb.  `hot` rows take half the entries (before
     pads and out-of-range ones are planted): many duplicates of each,
-    e.g. on both sides of the kernel's tile edge.  bool_mask=True gives
-    the same mask as [m, w] bool flags (the REPRO_NO_PACK=1 layout's
-    instance) in place of packed lanes."""
+    e.g. on both sides of the kernel's tile edge.  recovery=(k, cap)
+    gives the crash-recovery drain's shape (`b_recover`'s
+    `b_drain(DRAIN_ALL)` of one cache): m = n * cap rows of which only
+    cache k's cap rows are real, distinct blocks with a quarter of its
+    sFIFO slots empty, and every other row out of range (index nb) with
+    its mask clear.  bool_mask=True gives the same mask as [m, w] bool
+    flags (the REPRO_NO_PACK=1 layout's instance) in place of packed
+    lanes."""
     rng = np.random.default_rng(seed)
     l2 = rng.integers(-2**31, 2**31, (nb, w), dtype=np.int64) \
         .astype(np.int32)
@@ -70,6 +75,13 @@ def dw_inputs(seed, nb, w, m, *, dup=True, pad=True, oor=False, hot=(),
         idx[rng.random(m) < 0.25] = -1
     if oor:
         idx[rng.random(m) < 0.15] = nb + rng.integers(0, 3)
+    if recovery is not None:
+        k, cap = recovery
+        real = rng.permutation(nb)[:cap].astype(np.int32)
+        real[rng.random(cap) < 0.25] = nb
+        idx[:] = nb
+        idx[k * cap:(k + 1) * cap] = real
+        dirty[idx == nb] = 0
     if bool_mask:
         dirty = unpack_bits(dirty, w)
     return l2, rows, dirty, idx
@@ -145,6 +157,11 @@ DRAIN_CASES = [
     for where, nb, n in (("n=16", 64, 16), ("n=64", 640, 64),
                          ("run_app 64 CUs", 1600, 64))
     for op, m in (("drain", 16 * n), ("writeback", n))
+] + [
+    # the crash-recovery drain at n=64: one dead cache's 16 sFIFO rows
+    # real, the other 63 caches' rows out of range
+    ("recovery drain n=64", dict(nb=128, w=16, m=64 * 16, pad=False,
+                                 recovery=(5, 16))),
 ]
 COMMIT_CASES = [
     ("n=64", dict(n=64, nb=128, w=16)),

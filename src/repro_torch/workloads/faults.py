@@ -1,5 +1,5 @@
 """Protocol fault injection as protocol derivation
-(`repro.workloads.faults`, the faults that need no crash).
+(`repro.workloads.faults`).
 
 Every workload's self-check reads values through the simulated memory
 and compares them with bookkeeping the protocol cannot see.  These
@@ -7,12 +7,14 @@ helpers derive deliberately weakened `Protocol` objects, renamed copies
 with op-table entries overridden, from any registered protocol; a
 workload whose check stays green under them is not checking anything.
 Derived protocols stay unregistered.  The crash faults
-(`crash_holding_lock`, `crash_dirty`, `lease_never_expires`) need the
-elastic engines and are not ported yet.
+(`crash_holding_lock`, `crash_dirty`, `lease_never_expires`) pair with a
+CRASH event of the elastic engines (`harness.make_elastic`).
 """
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 from repro_torch.core import protocol as P
 
@@ -50,3 +52,45 @@ def serialize_remote(proto: P.Protocol) -> P.Protocol:
     schedules (DESIGN.md §9)."""
     return derive(proto, "serial_remote",
                   acquire_rem_b=None, release_rem_b=None)
+
+
+def crash_holding_lock(proto: P.Protocol, victim: int,
+                       at: float) -> P.Protocol:
+    """`proto` with agent `victim` dying inside a critical section at
+    clock `at`: from then on its releases never execute (`ops.py`'s
+    crash gate), while its acquires stay live.  The lock stays held, its
+    lease survives for the recovery drain, and the section's data writes
+    stay dirty in its L1.  Pair with a CRASH event a little after `at`."""
+    return derive(proto, f"crash_lock@{victim}",
+                  crash_gate=(int(victim), float(at)))
+
+
+def crash_dirty(proto: P.Protocol, victim: int, at: float) -> P.Protocol:
+    """`proto` with agent `victim` dying at clock `at` between the data
+    publish and its visibility plumbing: its local-scope releases after
+    `at` store the released value into its L1 but skip the real release
+    path (no LR-TBL insert), so no remote probe finds the dirty words.
+    Only the recovery drain's unconditional `b_invalidate` reclaims
+    them."""
+    inner = proto.release_loc_b
+    victim, at = int(victim), float(at)
+
+    def rel(cfg, st, active, addrs, vals):
+        active = P._bool(cfg, st, active)
+        cycles = st.counters.cycles
+        lanes = torch.arange(cfg.n_caches, device=cycles.device)
+        dying = active & (lanes == victim) & (cycles >= torch.tensor(
+            at, dtype=torch.float32, device=cycles.device))
+        st = inner(cfg, st, active & ~dying, addrs, vals)
+        st, _ = P.b_store_word(cfg, st, dying, addrs, vals)
+        return st
+
+    return derive(proto, f"crash_dirty@{victim}", release_loc_b=rel)
+
+
+def lease_never_expires(proto: P.Protocol) -> P.Protocol:
+    """`proto` with the recovery capability stripped: a dead agent's lease
+    never expires, so nothing reclaims its lock or dirty words.  The
+    elastic run still ends (its guard exits when no live agent can act)
+    and the self-check reports the loss."""
+    return derive(proto, "lease_never_expires", recover_b=None)

@@ -20,6 +20,12 @@ Optional remote-batching capability (DESIGN.md §9):
   remote_addr(wl, s, *ops)  -> [n] i32      the L2 sync address of agent
                                             i's next remote turn
 
+and the optional elastic hooks (DESIGN.md §10), each a bitwise identity
+on an all-False mask:
+
+  retire(wl, s, dead, *ops)   -> s'         forgive dying agents' work
+  admit(wl, s, joined, *ops)  -> s'         give re-admitted agents work
+
 Engines, each the JAX engine trip for trip: `run_serial` (smallest clock
 acts next, ties to the lowest index), `run_batched` (every local turn
 that provably precedes every remote turn that could observe it) and
@@ -36,8 +42,16 @@ remote branch.  Each `lax.while_loop`/`lax.cond` becomes a host loop or
 branch on a scalar read back from the device: one synchronisation per
 decision.
 
-Not ported yet: the elastic engines and the vmapped `*_many` replica
-engines.
+The elastic engines `run_serial_elastic` and `run_batched_elastic` run
+any workload over a churning alive set: `make_elastic` wraps a bench's
+state in an `ElasticState` and prepends a `ChurnSchedule` of LEAVE /
+CRASH / JOIN events to its ops.  An event at clock T fires before every
+turn at clock >= T in both engines (the batched trip is fenced at the
+event horizon), so the two stay bitwise equal under churn; a CRASH is
+reclaimed by the protocol's `recover_b` once its lease expires.  With an
+empty schedule each is bitwise its plain engine.
+
+Not ported yet: the vmapped `*_many` replica engines.
 """
 from __future__ import annotations
 
@@ -48,7 +62,7 @@ import torch
 
 from repro_torch.core import costmodel
 from repro_torch.core import protocol as P
-from repro_torch.kernels import fused_turn
+from repro_torch.kernels import common, fused_turn
 from repro_torch.obs import trace as T
 
 BIG = 3e38      # float32(3e38): above every real clock
@@ -108,6 +122,8 @@ class Workload:
     live: Callable
     remote_turn_b: Callable = None   # masked multi-agent remote turn
     remote_addr: Callable = None     # [n] i32 next-remote target address
+    retire: Callable = None          # masked retirement bookkeeping
+    admit: Callable = None           # masked (re-)admission bookkeeping
 
     @property
     def remote_cap(self) -> bool:
@@ -172,11 +188,19 @@ def _lex_before(clocks, wgs, mask):
     return (clocks < m) | ((clocks == m) & (wgs < j))
 
 
-def _remote_batch(wl: Workload, s, can_l, can_r, clocks, wgs, ops):
+def _fenced(mask, clocks, horizon):
+    """`mask` without the lanes at or past the event horizon (None: no
+    fence)."""
+    return mask if horizon is None else mask & (clocks < horizon)
+
+
+def _remote_batch(wl: Workload, s, can_l, can_r, clocks, wgs, horizon,
+                  ops):
     """The co-scheduled remote batch of a trip whose local batch is empty:
-    remote candidates before every local candidate, minus any lane whose
-    address collides with an earlier (clock, index) candidate's."""
-    r0 = can_r & _lex_before(clocks, wgs, can_l)
+    remote candidates before every local candidate and the horizon, minus
+    any lane whose address collides with an earlier (clock, index)
+    candidate's."""
+    r0 = _fenced(can_r & _lex_before(clocks, wgs, can_l), clocks, horizon)
     raddr = wl.remote_addr(wl, s, *ops)
     collide = r0[:, None] & r0[None, :] & (raddr[:, None] == raddr[None, :])
     earlier = (clocks[None, :] < clocks[:, None]) \
@@ -185,25 +209,30 @@ def _remote_batch(wl: Workload, s, can_l, can_r, clocks, wgs, ops):
     return r0 & ~(collide & earlier).any(dim=1)
 
 
-def _batched_trip(wl: Workload, s, can_l, can_r, ops):
+def _batched_trip(wl: Workload, s, can_l, can_r, horizon, ops):
     """One `run_batched` trip: the local batch if nonempty, else the
     co-scheduled remote batch if the capability allows one and it is
-    nonempty, else one serial turn."""
-    if not wl.has_remote:
-        return wl.local_turn(wl, s, can_l, *ops)
+    nonempty, else one serial turn.  `horizon` (a 0-d float32 tensor) is
+    the elastic engines' event fence: no batched turn at a clock >= it
+    runs this trip; the serial fallback is not fenced.  The plain engines
+    pass None."""
     clocks_all = s.store.counters.cycles
+    if not wl.has_remote:
+        return wl.local_turn(wl, s, _fenced(can_l, clocks_all, horizon),
+                             *ops)
     n = clocks_all.shape[0]
     wgs = torch.arange(n, dtype=torch.int32, device=clocks_all.device)
     wg_min = torch.where(can_l | can_r, clocks_all, BIG).argmin() \
         .to(torch.int32)
     fence = torch.where(can_l, clocks_all + wl.remote_bound(wl, s, *ops),
                         BIG).min()
-    batch = can_l & _lex_before(clocks_all, wgs, can_r) \
-        & (clocks_all <= fence)
+    batch = _fenced(can_l & _lex_before(clocks_all, wgs, can_r)
+                    & (clocks_all <= fence), clocks_all, horizon)
     if bool(batch.any()):
         return wl.local_turn(wl, s, batch, *ops)
     if wl.remote_cap:
-        rbatch = _remote_batch(wl, s, can_l, can_r, clocks_all, wgs, ops)
+        rbatch = _remote_batch(wl, s, can_l, can_r, clocks_all, wgs,
+                               horizon, ops)
         if bool(rbatch.any()):
             return wl.remote_turn_b(wl, s, rbatch, *ops)
     return _serial_turn(wl, s, wg_min, can_l, ops)
@@ -216,7 +245,7 @@ def run_batched(wl: Workload, state, *ops):
     while bool(wl.live(wl, s, *ops)):
         can_l = wl.can_local(wl, s, *ops)
         can_r = wl.can_remote(wl, s, *ops) if wl.has_remote else None
-        s = _note_turn(s, _batched_trip(wl, s, can_l, can_r, ops))
+        s = _note_turn(s, _batched_trip(wl, s, can_l, can_r, None, ops))
     return s
 
 
@@ -227,7 +256,7 @@ def _fused_trip(wl: Workload, s, can_l, can_r, ops):
     capability only) or, when that is empty too, the first-argmin agent's
     remote turn."""
     if not wl.has_remote:
-        return _batched_trip(wl, s, can_l, can_r, ops)
+        return _batched_trip(wl, s, can_l, can_r, None, ops)
     cap = wl.remote_cap
     plan = fused_turn.trip_plan(s.store.counters.cycles, can_l, can_r,
                                 wl.remote_bound(wl, s, *ops),
@@ -252,6 +281,179 @@ def run_fused(wl: Workload, state, *ops):
     return s
 
 
+# --------------------------------------------------------------------------
+# Elastic alive-set scheduling (DESIGN.md §10)
+#
+# LEAVE retires an agent (the workload's `retire` hook forgives its
+# remaining work) and reclaims its cache at once.  CRASH retires it too,
+# but the directory reclaims only once the agent's lease expires, at
+# T + lease, through `Protocol.recover_b`; with `recover_b` None
+# (`faults.lease_never_expires`) nothing is ever reclaimed.  JOIN
+# re-admits the agent (`admit` may give it work).
+# --------------------------------------------------------------------------
+
+LEAVE, CRASH, JOIN = 0, 1, 2
+KIND_CODES = {"leave": LEAVE, "crash": CRASH, "join": JOIN}
+
+
+class ChurnSchedule(NamedTuple):
+    """Churn events, carried as the first scheduler op."""
+    clock: torch.Tensor   # [k] f32 fire time (BIG: padding, never fires)
+    agent: torch.Tensor   # [k] i32 subject agent
+    kind: torch.Tensor    # [k] i32 LEAVE / CRASH / JOIN
+    lease: torch.Tensor   # [] f32 lease a CRASH waits out (cycles)
+
+
+class ElasticState(NamedTuple):
+    """Workload state plus the alive-set bookkeeping."""
+    s: Any                     # workload state (first field is the Store)
+    alive: torch.Tensor        # [n] bool scheduling-eligible agents
+    recover_at: torch.Tensor   # [n] f32 pending reclaim clock (BIG: none)
+    fired: torch.Tensor        # [k] bool events already replayed
+
+
+def make_churn(events=(), lease=0.0, device=None) -> ChurnSchedule:
+    """A schedule on `device` (default: the GPU) from (clock, agent, kind)
+    triples, kind a `KIND_CODES` name or code.  It always has at least
+    one (inert) row, so its reductions never see an empty axis."""
+    dev = common.resolve_device(device)
+    k = max(len(events), 1)
+    clock = [float(BIG)] * k
+    agent = [0] * k
+    kind = [LEAVE] * k
+    for j, (t, a, kd) in enumerate(events):
+        clock[j] = float(t)
+        agent[j] = int(a)
+        kind[j] = KIND_CODES[kd] if isinstance(kd, str) else int(kd)
+    return ChurnSchedule(
+        clock=torch.tensor(clock, dtype=torch.float32, device=dev),
+        agent=torch.tensor(agent, dtype=torch.int32, device=dev),
+        kind=torch.tensor(kind, dtype=torch.int32, device=dev),
+        lease=torch.tensor(float(lease), dtype=torch.float32, device=dev))
+
+
+def make_elastic(bench: Bench, events=(), lease=0.0) -> Bench:
+    """`bench` for the elastic engines: an `ElasticState` state on the
+    bench's device, the schedule prepended to its ops, its check applied
+    to the inner state."""
+    cycles = bench.state.store.counters.cycles
+    sched = make_churn(events, lease, cycles.device)
+    n = cycles.shape[0]
+    es = ElasticState(
+        s=bench.state,
+        alive=torch.ones((n,), dtype=torch.bool, device=cycles.device),
+        recover_at=torch.full((n,), BIG, dtype=torch.float32,
+                              device=cycles.device),
+        fired=sched.clock >= BIG)
+    return Bench(bench.wl, es, (sched,) + bench.ops,
+                 lambda final: bench.check(final.s))
+
+
+def _elastic_ready(wl: Workload, es: ElasticState, ops):
+    """Readiness masked by the alive set (can_r all False for workloads
+    without remote turns)."""
+    can_l = wl.can_local(wl, es.s, *ops) & es.alive
+    if wl.has_remote:
+        can_r = wl.can_remote(wl, es.s, *ops) & es.alive
+    else:
+        can_r = torch.zeros_like(es.alive)
+    return can_l, can_r
+
+
+def _event_horizon(sched: ChurnSchedule, es: ElasticState) -> torch.Tensor:
+    """Earliest unfired event or pending reclaim, 0-d f32 (BIG: none)."""
+    ec = torch.where(es.fired, BIG, sched.clock).min()
+    return torch.minimum(ec, es.recover_at.min())
+
+
+def _fire_events(wl: Workload, sched: ChurnSchedule, es: ElasticState,
+                 mcc, ops) -> ElasticState:
+    """Replay every event and reclaim due at clock <= `mcc` (the next
+    turn's clock), in schedule order.  Like the reference's scan, every
+    row runs, a row that is not due with all-False masks (the hooks'
+    identity); `recover_b` runs only when some reclaim is due, and a due
+    reclaim is cleared even without `recover_b`."""
+    s, alive, recover_at, fired = es
+    lanes = torch.arange(alive.shape[0], dtype=torch.int32,
+                         device=alive.device)
+    due = ~fired & (sched.clock <= mcc)
+    for j in range(sched.clock.shape[0]):
+        hot = (lanes == sched.agent[j]) & due[j]
+        kind = sched.kind[j]
+        dead = hot & (kind != JOIN)
+        join = hot & (kind == JOIN)
+        if wl.retire is not None:
+            s = wl.retire(wl, s, dead, *ops)
+        if wl.admit is not None:
+            s = wl.admit(wl, s, join, *ops)
+        s = s._replace(store=T.record_event(s.store, hot, T.CHURN, kind,
+                                            clock=sched.clock[j]))
+        alive = (alive & ~dead) | join
+        due_at = torch.where(kind == CRASH, sched.clock[j] + sched.lease,
+                             sched.clock[j])
+        recover_at = torch.where(dead, due_at, recover_at)
+    fired = fired | due
+    reclaim = (recover_at <= mcc) & (recover_at < BIG)
+    if wl.proto.recover_b is not None and bool(reclaim.any()):
+        s = s._replace(store=wl.proto.recover_b(wl.cfg.proto_cfg(),
+                                                s.store, reclaim))
+    recover_at = torch.where(reclaim, BIG, recover_at)
+    return ElasticState(s, alive, recover_at, fired)
+
+
+def _elastic_trip(wl: Workload, sched: ChurnSchedule, es: ElasticState,
+                  ops, batched: bool):
+    """One pass of an elastic engine's loop: (go, es').  go is False when
+    no work remains or no progress is possible (no live agent can act and
+    no event or reclaim is pending: a crashed agent's leftovers that
+    nobody may take end the run instead of wedging it).  Otherwise the
+    pass fires the events and reclaims due at or before the next turn's
+    clock mcc (mcc is BIG when no live agent can act), or runs one turn
+    (serial) or one trip fenced at the event horizon (batched).  The loop
+    decision is one host read."""
+    can_l, can_r = _elastic_ready(wl, es, ops)
+    ready = can_l | can_r
+    clocks = torch.where(ready, es.s.store.counters.cycles, BIG)
+    mcc = clocks.min()
+    ec = _event_horizon(sched, es)
+    pending = ec < BIG
+    go = torch.as_tensor(wl.live(wl, es.s, *ops)) & (ready.any() | pending)
+    go, fire = torch.stack([go, (ec <= mcc) & pending]).tolist()
+    if not go:
+        return False, es
+    if fire:
+        return True, _fire_events(wl, sched, es, mcc, ops)
+    if batched:
+        s = _batched_trip(wl, es.s, can_l, can_r if wl.has_remote else None,
+                          ec, ops)
+    else:
+        s = _serial_turn(wl, es.s, clocks.argmin().to(torch.int32), can_l,
+                         ops)
+    return True, es._replace(s=_note_turn(es.s, s))
+
+
+def run_serial_elastic(wl: Workload, es: ElasticState,
+                       sched: ChurnSchedule, *ops):
+    """`run_serial` over a churning alive set.  With an empty schedule
+    its turns are bitwise `run_serial`'s."""
+    go = True
+    while go:
+        go, es = _elastic_trip(wl, sched, es, ops, batched=False)
+    return es
+
+
+def run_batched_elastic(wl: Workload, es: ElasticState,
+                        sched: ChurnSchedule, *ops):
+    """`run_batched` over a churning alive set: each trip is fenced at the
+    event horizon, so no turn at a clock >= the next event runs before
+    the event fires.  With an empty schedule its trips are bitwise
+    `run_batched`'s."""
+    go = True
+    while go:
+        go, es = _elastic_trip(wl, sched, es, ops, batched=True)
+    return es
+
+
 ENGINES = P.Registry("engine")
 
 
@@ -267,6 +469,8 @@ def engines() -> tuple:
 register_engine("serial", run_serial)
 register_engine("batched", run_batched)
 register_engine("fused", run_fused)
+register_engine("serial_elastic", run_serial_elastic)
+register_engine("batched_elastic", run_batched_elastic)
 
 
 def runner(engine: str):

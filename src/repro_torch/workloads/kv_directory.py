@@ -100,6 +100,25 @@ def _live(wl, s: KVState):
     return work & (s.rounds < _max_events(wl.cfg))
 
 
+def _retire(wl, s: KVState, dead, *ops) -> KVState:
+    """Elastic retirement (DESIGN.md §10): a dead owner stops owing
+    updates and lookups; its buckets keep their bookkept truth, so the
+    drained-L2 audit still checks every committed update.  The identity
+    when `dead` is all False."""
+    return s._replace(
+        upd_quota=torch.where(dead, torch.minimum(s.upd_quota, s.upd_done),
+                              s.upd_quota),
+        look_done=torch.where(
+            dead, s.look_done.clamp(min=wl.cfg.lookups_per_agent),
+            s.look_done))
+
+
+def _admit(wl, s: KVState, join, *ops) -> KVState:
+    """Elastic (re-)admission: a joining owner owes one more update."""
+    return s._replace(
+        upd_quota=torch.where(join, s.upd_done + 1, s.upd_quota))
+
+
 def _delta(lanes, upd_done, salt):
     return (lanes + 1) + torch.remainder(upd_done * 7 + salt, 5)
 
@@ -169,7 +188,8 @@ def build_workload(cfg: Config, proto: P.Protocol) -> harness.Workload:
         name="kv_directory", cfg=cfg, proto=proto, has_remote=True,
         can_local=_can_local, can_remote=_can_remote,
         local_turn=_local_turn, remote_turn=_remote_turn,
-        remote_bound=_remote_bound, live=_live)
+        remote_bound=_remote_bound, live=_live,
+        retire=_retire, admit=_admit)
 
 
 def init_state(wl, seed, device=None) -> KVState:

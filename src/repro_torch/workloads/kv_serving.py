@@ -139,6 +139,17 @@ def _live(wl, s: ServeState):
         & (s.rounds < _max_events(wl.cfg))
 
 
+def _retire(wl, s: ServeState, dead, *ops) -> ServeState:
+    """Elastic retirement (DESIGN.md §10): a dead shard's unserved tail is
+    forgiven; its pages keep their bookkept truth, so the audit still
+    scores every committed write."""
+    return s._replace(streams=D.retire(s.streams, s.cursor, dead))
+
+
+def _admit(wl, s: ServeState, join, *ops) -> ServeState:
+    return s._replace(streams=D.admit(s.streams, s.cursor, join))
+
+
 def _delta(lanes, cursor, page):
     return (lanes + 1) + torch.remainder(cursor * 7 + page, 5)
 
@@ -218,7 +229,8 @@ def build_workload(cfg: Config, proto: P.Protocol) -> harness.Workload:
         can_local=_can_local, can_remote=_can_remote,
         local_turn=_local_turn, remote_turn=_remote_turn,
         remote_bound=_remote_bound, live=_live,
-        remote_turn_b=_remote_turn_b, remote_addr=_remote_addr)
+        remote_turn_b=_remote_turn_b, remote_addr=_remote_addr,
+        retire=_retire, admit=_admit)
 
 
 def init_state(wl, seed, device=None) -> ServeState:

@@ -142,6 +142,34 @@ def _live(wl, s: PCState):
     return (s.consumed < s.quota).any() & (s.rounds < _max_events(wl.cfg))
 
 
+def _retire(wl, s: PCState, dead, *ops) -> PCState:
+    """Elastic retirement (DESIGN.md §10): a dead producer stops owing
+    items (quota := produced; its produced items are still drained and
+    audited); a dead consumer orphans its partition, whose producers'
+    undrained obligations are forgiven too (the drained-L2 audit still
+    checks every produced item).  The identity when `dead` is all
+    False."""
+    cfg = wl.cfg
+    cons = _is_consumer(cfg, dead.device)
+    lanes = _lanes(cfg, dead.device)
+    orphan = ~cons & (dead & cons)[torch.remainder(lanes, cfg.n_consumers)
+                                   .long()]
+    fold = (dead & ~cons) | orphan
+    quota = torch.where(fold, torch.minimum(s.quota, s.produced), s.quota)
+    consumed = torch.where(orphan, torch.maximum(s.consumed, quota),
+                           s.consumed)
+    return s._replace(quota=quota, consumed=consumed)
+
+
+def _admit(wl, s: PCState, join, *ops) -> PCState:
+    """Elastic (re-)admission: a joining producer owes one more item,
+    bounded by the ring's capacity."""
+    cfg = wl.cfg
+    join = join & ~_is_consumer(cfg, join.device)
+    return s._replace(quota=torch.where(
+        join, (s.produced + 1).clamp(max=cfg.max_items), s.quota))
+
+
 def _local_turn(wl, s: PCState, mask) -> PCState:
     cfg = wl.cfg
     pc = cfg.proto_cfg()
@@ -227,7 +255,8 @@ def build_workload(cfg: Config, proto: P.Protocol) -> harness.Workload:
         can_local=_can_local, can_remote=_can_remote,
         local_turn=_local_turn, remote_turn=_remote_turn,
         remote_bound=_remote_bound, live=_live,
-        remote_turn_b=_remote_turn_b, remote_addr=_remote_addr)
+        remote_turn_b=_remote_turn_b, remote_addr=_remote_addr,
+        retire=_retire, admit=_admit)
 
 
 def init_state(wl, seed, device=None) -> PCState:

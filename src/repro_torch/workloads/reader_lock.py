@@ -101,6 +101,29 @@ def _live(wl, s: RLState):
     return work & (s.rounds < _max_events(wl.cfg))
 
 
+def _retire(wl, s: RLState, dead, *ops) -> RLState:
+    """Elastic retirement (DESIGN.md §10): a dead writer (lane 0) stops
+    owing versions, and the payload audit still checks the published
+    ones; a dead reader stops owing reads.  The identity when `dead` is
+    all False."""
+    return s._replace(
+        w_target=torch.where(dead[0],
+                             torch.minimum(s.w_target, s.writes_done),
+                             s.w_target),
+        r_target=torch.where(dead, torch.minimum(s.r_target, s.reads_done),
+                             s.r_target))
+
+
+def _admit(wl, s: RLState, join, *ops) -> RLState:
+    """Elastic (re-)admission: a joining writer owes one more version, a
+    joining reader one more read."""
+    lanes = _lanes(wl.cfg, join.device)
+    return s._replace(
+        w_target=torch.where(join[0], s.writes_done + 1, s.w_target),
+        r_target=torch.where(join & (lanes > 0), s.reads_done + 1,
+                             s.r_target))
+
+
 def _local_turn(wl, s: RLState, mask) -> RLState:
     cfg = wl.cfg
     pc = cfg.proto_cfg()
@@ -158,7 +181,8 @@ def build_workload(cfg: Config, proto: P.Protocol) -> harness.Workload:
         name="reader_lock", cfg=cfg, proto=proto, has_remote=True,
         can_local=_can_local, can_remote=_can_remote,
         local_turn=_local_turn, remote_turn=_remote_turn,
-        remote_bound=_remote_bound, live=_live)
+        remote_bound=_remote_bound, live=_live,
+        retire=_retire, admit=_admit)
 
 
 def init_state(wl, seed, device=None) -> RLState:

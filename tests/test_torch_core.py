@@ -449,7 +449,8 @@ def test_unknown_names_raise_with_registered_list():
     with pytest.raises(ValueError, match="unknown scope"):
         TO.acquire(TP.SRSP, PORT.cfg, TP.make_store(PORT.cfg, "cpu"),
                    _hot(PORT, 0), _fill(PORT, 0), 0, 1, scope=7)
-    assert set(harness.engines()) == {"serial", "batched", "fused"}
+    assert set(harness.engines()) == {"serial", "batched", "fused",
+                                      "serial_elastic", "batched_elastic"}
     assert TP.SRSP.remote_batchable and not TP.RSP.remote_batchable
 
 

@@ -455,6 +455,41 @@ def _same_as_golden(row, want):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "bool"])
+def test_recovery_drain_is_one_device_operation(cuda, packed):
+    """The crash-recovery drain's `drain_writeback` call (n=64: one
+    cache's 16 sFIFO rows real, the other 1008 out of range) is one
+    kernel record, and equals its plain version."""
+    k = next(i for i, (_, kw) in enumerate(C.DRAIN_CASES)
+             if "recovery" in kw)
+    args = [C.to_torch(x).to(cuda) for x in C.dw_inputs(
+        k, **C.DRAIN_CASES[k][1], bool_mask=not packed)]
+    got = SF.drain_writeback(*args)                 # build and load first
+    torch.cuda.synchronize()
+    assert torch.equal(got, SF.drain_writeback_ref(*args))
+    ops = timing.device_ops(lambda: SF.drain_writeback(*args))
+    assert sum(ops.values()) == 1, ops
+    assert timing.ONE_OP["drain_writeback"] in next(iter(ops)), ops
+
+
+CHURN64 = [c for c in json.loads((GOLDEN / "churn.json").read_text())
+           ["cells"] if c["n_agents"] == 64]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(len(CHURN64)),
+                         ids=[c["name"] for c in CHURN64])
+def test_churn_golden_cell_on_card(cuda, k):
+    """Each n=64 cell of `golden/churn.json` on the card, held with `==`,
+    through the drain kernel."""
+    from test_torch_churn import assert_held, run_churn_cell
+    cell = CHURN64[k]
+    before = SF.drain_writeback.launches
+    assert_held(run_churn_cell(cell, cuda), cell)
+    assert SF.drain_writeback.launches > before
+
+
+@pytest.mark.cuda
 def test_worksteal_cell_on_card(cuda):
     want = _golden_cell("worksteal", "srsp", 64, 2, "fused")
     before = FT.trip_plan.launches

@@ -12,7 +12,15 @@ worksteal and kv_serving.  Beside them:
 * `kv_serving_traces.npz` holds the request traces the reference
   generated for the kv_serving cells (`traffic.trace.save_set`), which
   the port replays: its own float samplers agree with XLA's to a few
-  ulps, not bit for bit.
+  ulps, not bit for bit.  It also holds the churn cells' traces, one of
+  them drawn under `jax.threefry_partitionable(False)` (`_legacy`);
+* `churn.json` holds the elastic engines' cells (`CHURN_CELLS`): crash
+  red/green pairs (a crash fault with the recovery drain on, and with
+  `faults.lease_never_expires`) at n=64 and at the n=4 pins of
+  tests/test_churn.py and tests/test_kv_serving.py, a zero-churn cell
+  and leave/join cells, each with its counters, check verdict,
+  `done`/`completed`/`offered` where the check has them, recoveries and
+  the final alive mask.
 
 Checks:
 
@@ -27,9 +35,12 @@ Regenerate the files with
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_golden.py --write [WORKLOAD ...]
 
+(`churn` among the names writes `churn.json`).
+
 A file whose cells come out unchanged is left as it is, provenance
 included.
 """
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -95,6 +106,72 @@ BENCH_MAKESPANS = {
 }
 
 
+
+
+def churn_cell(workload, n, seed, *, engine="batched_elastic", fault=None,
+               recovery=True, churn=(), lease=0.0, build_kw=None,
+               layout="partitionable"):
+    """One churn cell, srsp: `fault` (name, victim, at) of `faults`,
+    `recovery` False for `faults.lease_never_expires`, `churn` the
+    (clock, agent, kind) events; kv_serving cells name the request trace
+    they replay (`layout` "legacy": drawn under
+    `jax.threefry_partitionable(False)`)."""
+    build_kw = dict(build_kw or {})
+    kind = ("green" if recovery else "red") if fault else \
+        ("leave_join" if churn else "zero_churn")
+    name = f"{workload} n={n} seed={seed} {engine} " + (
+        f"{fault[0]}@{fault[1]}:{fault[2]} crash@{churn[0][0]} {kind}"
+        if fault else kind) + ("" if layout == "partitionable" else
+                               f" {layout}")
+    cell = {"name": name, "workload": workload, "scenario": "srsp",
+            "n_agents": n, "seed": seed, "engine": engine,
+            "fault": list(fault) if fault else None,
+            "recovery": recovery, "churn": [list(e) for e in churn],
+            "lease": lease, "build_kw": build_kw, "layout": layout}
+    if workload == "kv_serving":
+        cell["trace"] = f"n{n}_seed{seed}_ppa{build_kw['pages_per_agent']}" \
+            + ("" if layout == "partitionable" else f"_{layout}")
+    return cell
+
+
+def _crash_pair(workload, n, seed, fault, victim, at, evt, build_kw=None,
+                layout="partitionable"):
+    return [churn_cell(workload, n, seed, fault=(fault, victim, at),
+                       recovery=rec, churn=[(evt, victim, "crash")],
+                       build_kw=build_kw, layout=layout)
+            for rec in (True, False)]
+
+
+PPA1 = {"pages_per_agent": 1}
+LEAVE_JOIN = [(50.0, 2, "leave"), (150.0, 2, "join")]
+# the crash pairs: at n=64 (reader_lock's pin moves to at 30, CRASH 60 to
+# stay red; worksteal's n=64 run stays green without recovery, so its
+# pair pins what the reference gives), then the n=4 pins of
+# tests/test_churn.py and tests/test_kv_serving.py, whose worksteal and
+# kv_serving pairs are the sweep's churned rows (kv_serving's committed
+# row is a legacy-layout trace's)
+CHURN_CELLS = (
+    _crash_pair("kv_directory", 64, 4, "crash_dirty", 2, 60.0, 120.0)
+    + _crash_pair("reader_lock", 64, 4, "crash_holding_lock", 0, 30.0, 60.0)
+    + _crash_pair("producer_consumer", 64, 4, "crash_dirty", 3, 12.0, 30.0)
+    + _crash_pair("kv_serving", 64, 4, "crash_holding_lock", 0, 30.0, 180.0,
+                  PPA1)
+    + _crash_pair("worksteal", 64, 2, "crash_holding_lock", 0, 5.0, 60.0)
+    + _crash_pair("worksteal", 4, 3, "crash_holding_lock", 0, 5.0, 400.0,
+                  {"n_chunks_max": 12})
+    + _crash_pair("reader_lock", 4, 3, "crash_holding_lock", 0, 100.0, 160.0)
+    + _crash_pair("kv_directory", 4, 3, "crash_dirty", 2, 60.0, 120.0)
+    + _crash_pair("producer_consumer", 4, 3, "crash_dirty", 3, 12.0, 30.0)
+    + _crash_pair("kv_serving", 4, 3, "crash_holding_lock", 0, 30.0, 180.0,
+                  PPA1)
+    + _crash_pair("kv_serving", 4, 3, "crash_holding_lock", 0, 30.0, 180.0,
+                  PPA1, layout="legacy")
+    + [churn_cell("kv_directory", 64, 4),
+       churn_cell("kv_directory", 64, 4, churn=LEAVE_JOIN)]
+    + [churn_cell("kv_directory", 16, 4, engine=e, churn=LEAVE_JOIN)
+       for e in ("serial_elastic", "batched_elastic")])
+
+
 def golden_path(workload: str) -> pathlib.Path:
     return GOLDEN_DIR / f"{workload}.json"
 
@@ -123,6 +200,67 @@ def jax_traces(cells=None) -> dict:
             "cfg": cfg.traffic, "n_agents": n, "n_keys": cfg.n_pages,
             "seed": seed}
     return out
+
+
+def _layout(layout: str):
+    import jax
+    return contextlib.nullcontext() if layout == "partitionable" \
+        else jax.threefry_partitionable(False)
+
+
+def jax_churn_traces(cells=None) -> dict:
+    """The reference's request trace of every kv_serving churn cell."""
+    from repro.traffic import trace as JT
+    from repro.workloads import kv_serving
+
+    out = {}
+    for c in cells or CHURN_CELLS:
+        if "trace" not in c or c["trace"] in out:
+            continue
+        n, seed = c["n_agents"], c["seed"]
+        cfg = kv_serving.Config(n_agents=n, **c["build_kw"])
+        with _layout(c["layout"]):
+            tr = JT.generate(cfg.traffic, n, cfg.n_pages, seed)
+        out[c["trace"]] = {"tr": tr, "cfg": cfg.traffic, "n_agents": n,
+                           "n_keys": cfg.n_pages, "seed": seed}
+    return out
+
+
+def churn_from_jax(cells=None) -> dict:
+    """Run every churn cell (or `cells`) through the JAX reference's
+    elastic engines."""
+    import jax
+    from repro import workloads
+    from repro.core import protocol as P
+    from repro.workloads import faults, harness
+
+    out = []
+    for c in cells or CHURN_CELLS:
+        proto = P.get_protocol(c["scenario"])
+        if c["fault"]:
+            name, victim, at = c["fault"]
+            proto = getattr(faults, name)(proto, victim, at)
+        if not c["recovery"]:
+            proto = faults.lease_never_expires(proto)
+        with _layout(c["layout"]):
+            bench = workloads.get(c["workload"]).build(
+                c["scenario"], c["n_agents"], seed=c["seed"], proto=proto,
+                **c["build_kw"])
+        eb = harness.make_elastic(bench, [tuple(e) for e in c["churn"]],
+                                  c["lease"])
+        final = harness.runner(c["engine"])(eb.wl, eb.state, *eb.ops)
+        check = eb.check(final)
+        out.append({**c, "counters": harness.counters_dict(final.s.store),
+                    "events": check["events"],
+                    "check_ok": bool(check["ok"]),
+                    "check_fails": int(check["check_fails"]),
+                    **{k: check.get(k) for k in ("done", "completed",
+                                                 "offered")},
+                    "recoveries": float(np.sum(np.asarray(
+                        final.s.store.counters.recoveries))),
+                    "alive": np.asarray(final.alive).tolist()})
+        jax.clear_caches()
+    return {"cells": out}
 
 
 def jax_apps() -> tuple:
@@ -184,6 +322,20 @@ def _provenance(workload: str) -> dict:
                                 check=True).stdout.strip()
     except (OSError, subprocess.CalledProcessError):
         commit = None
+    if workload == "churn":
+        import jax
+        return {"reference": "repro (JAX) harness.make_elastic + "
+                             "harness.runner(engine), srsp, faults.<fault>"
+                             " (+ faults.lease_never_expires for red "
+                             "cells), CPU backend, kernel_mode ref",
+                "jax_commit": commit,
+                "engine": sorted({c["engine"] for c in CHURN_CELLS}),
+                "prng_layout": "kv_serving traces: jax_threefry_"
+                               "partitionable=True (the installed JAX "
+                               f"{jax.__version__}'s default), except the "
+                               "cells with layout 'legacy', drawn under "
+                               "jax.threefry_partitionable(False)",
+                "generator": "tests/test_torch_golden.py --write churn"}
     engines = sorted({c[3] for c in CELLS[workload]})
     prov = {"reference": f"repro (JAX) {workload}, harness.runner(engine), "
                          "CPU backend, kernel_mode ref",
@@ -341,19 +493,28 @@ def test_kv_serving_golden_cells():
 
 def test_kv_serving_golden_traces_are_jax_and_held_by_the_port():
     """Each stored trace is the JAX draw of its provenance, bit for bit,
-    and the port's own draw is held to it (`trace.compare`)."""
+    and the port's own draw is held to it (`trace.compare`); a churn
+    cell's legacy-layout trace is the JAX draw under that layout (the
+    port draws the installed default's only)."""
     pytest.importorskip("torch")
     from repro.traffic import trace as JT
     from repro_torch.traffic import trace as TT
 
     stored = TT.load_set(str(TRACES_PATH), "cpu")
+    layouts = {c["trace"]: c["layout"] for c in CHURN_CELLS
+               if "trace" in c}
     assert sorted(stored) == sorted({c["trace"] for c in
-                                     _golden("kv_serving")["cells"]})
+                                     _golden("kv_serving")["cells"]}
+                                    | set(layouts))
     for name, (tr, meta) in stored.items():
         cfg, n = meta["config"], meta["n_agents"]
-        want = JT.generate(cfg, n, meta["n_keys"], meta["seed"])
+        layout = layouts.get(name, "partitionable")
+        with _layout(layout):
+            want = JT.generate(cfg, n, meta["n_keys"], meta["seed"])
         for a, b in zip(tr, want):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        if layout != "partitionable":
+            continue
         got = TT.generate(cfg, n, meta["n_keys"], meta["seed"], "cpu")
         res = TT.compare(got, tr, n, cfg.requests_per_agent)
         print(name, res)
@@ -391,9 +552,26 @@ def test_worksteal_apps_golden_regenerate_from_jax():
             np.testing.assert_array_equal(z[name], sol)
 
 
+@pytest.mark.slow
+def test_churn_golden_regenerates_from_jax():
+    assert churn_from_jax()["cells"] == _golden("churn")["cells"]
+    stored = np.load(TRACES_PATH)
+    for name, t in jax_churn_traces().items():
+        for f in ("arrival", "key", "kind", "agent"):
+            np.testing.assert_array_equal(stored[f"{name}/{f}"],
+                                          np.asarray(getattr(t["tr"], f)))
+
+
+def _save_traces() -> None:
+    """Every golden trace, the kv_serving cells' and the churn cells'."""
+    from repro_torch.traffic import trace as TT
+    TT.save_set(str(TRACES_PATH), {**jax_traces(), **jax_churn_traces()})
+
+
 def write(workload: str) -> None:
     path = golden_path(workload)
-    doc = golden_from_jax(workload)
+    doc = churn_from_jax() if workload == "churn" \
+        else golden_from_jax(workload)
     if workload == "worksteal":
         doc["apps"], sols = jax_apps()
     if path.exists() and {k: v for k, v in _golden(workload).items()
@@ -402,9 +580,8 @@ def write(workload: str) -> None:
         return
     if workload == "worksteal":
         np.savez_compressed(APPS_PATH, **sols)
-    if workload == "kv_serving":
-        from repro_torch.traffic import trace as TT
-        TT.save_set(str(TRACES_PATH), jax_traces())
+    if workload in ("kv_serving", "churn"):
+        _save_traces()
     path.write_text(json.dumps({"provenance": _provenance(workload), **doc},
                                indent=1) + "\n")
     print(f"wrote {path}")
@@ -414,6 +591,7 @@ if __name__ == "__main__":
     if "--write" not in sys.argv:
         sys.exit("usage: python tests/test_torch_golden.py --write "
                  "[WORKLOAD ...]")
-    names = [a for a in sys.argv[1:] if a != "--write"] or sorted(CELLS)
+    names = [a for a in sys.argv[1:] if a != "--write"] \
+        or sorted(CELLS) + ["churn"]
     for name in names:
         write(name)

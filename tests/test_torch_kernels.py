@@ -70,6 +70,26 @@ def test_drain_writeback_past_one_tile_matches_pallas(k):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+# the crash-recovery drain's shape (one cache's sFIFO rows real, every
+# other cache's out of range); the seed is the case's index, as on the card
+RECOVERY_CASES = [k for k, (_, kw) in enumerate(C.DRAIN_CASES)
+                  if "recovery" in kw]
+
+
+@pytest.mark.parametrize("k", RECOVERY_CASES,
+                         ids=[C.DRAIN_CASES[k][0] for k in RECOVERY_CASES])
+def test_drain_writeback_recovery_drain_matches_pallas(k):
+    l2, rows, dirty, idx = dw_inputs(k, **C.DRAIN_CASES[k][1])
+    nb = C.DRAIN_CASES[k][1]["nb"]
+    assert 0 < int((idx < nb).sum()) <= 16 and int((idx == nb).sum()) > 1000
+    want = drain_writeback_pallas(jnp.asarray(l2), jnp.asarray(rows),
+                                  jnp.asarray(dirty), jnp.asarray(idx),
+                                  interpret=True)
+    got = SF.drain_writeback(_t(l2), _t(rows), _t(dirty), _t(idx))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert not np.array_equal(got.numpy(), l2)
+
+
 def test_drain_writeback_bit31_last_writer_wins():
     """Word 31 dirty in both entries for one block: the later entry wins;
     word 63 dirty only in the earlier one."""
