@@ -12,7 +12,11 @@ Phases, each fatal on failure:
      main path's shapes and at the edge cases (duplicates, pads,
      out-of-range indices, dirty bit 31, remote_cap, fences, empty
      masks), bitwise; drain_writeback under packed and under bool masks
-     (its REPRO_NO_PACK=1 instance, `drain_writeback_bool`);
+     (its REPRO_NO_PACK=1 instance, `drain_writeback_bool`); and the
+     replica instances (`drain_writeback_many`, `drain_writeback_bool_many`,
+     `plane_commit_many`, `trip_plan_many`: a leading replica axis, one
+     launch for every replica) on `cases.*_MANY_CASES`, stacked inputs
+     at R = 1, 2, 64 with idle replicas beside busy ones, bitwise;
   4. the main path: the simulator's workloads through `run_cell` with
      every launch count set to 0 first, held bitwise (every counter,
      `events`, `check_ok`, `check_fails`) against the JAX reference's
@@ -50,6 +54,22 @@ Phases, each fatal on failure:
      (counters, check, done/completed/offered, recoveries, the final
      alive mask), with its `steady_s`, loop passes and drain_writeback /
      plane_commit launches per run logged (zeroed before each cell).
+     Then the replica axis, in a child process (so that the process
+     that traces with torch.profiler in phases 5 and 6 never runs the
+     replica engines): every cell of `golden/many.json` (the
+     reference's `run_fused_many`/`run_batched_many` at n=64 over seeds 4
+     and 5: srsp fused for the five vmappable workloads, kv_serving on
+     its golden traces, kv_directory srsp batched and rsp/baseline
+     fused, producer_consumer_mc batched with and without
+     `faults.serialize_remote`) through `sweep.run_vmapped_cell`, after
+     one warm-up run, every lane held with `==`, with each cell's
+     `steady_s_per_run`, `steady_s_per_replica`, trips and launches a
+     run logged (`trip_plan_many` once a pass of the fused runs, the
+     `remote_batch_ab` pair's makespans equal); and the full-width
+     kv_serving shape as one fused replica run of SERVING_REPLICAS
+     replicas (seeds 4, 5, ...): lane 0 on the reference's trace, held
+     to the full-width golden cell, the others on the traces the port
+     draws on the card, every lane green.
      Every kernel must have launched in these paths, each path's launch
      counts set to 0 just before it and read just after.  Then one fused
      producer_consumer_mc srsp n=64 run records the size of each
@@ -57,20 +77,24 @@ Phases, each fatal on failure:
      the bool metadata layout: a child process with REPRO_NO_PACK=1 runs
      kv_directory, the three lock and queue workloads, worksteal (seed
      2) and kv_serving (its golden trace) at n=64 srsp fused and the
-     kv_directory n=64 crash_dirty red/green pair of `churn.json`, held
-     to the same golden cells, with the launch counts set to 0 first: the
-     bool drain kernel and trip_plan must launch (bool planes take
-     plane_commit's plain version, as in the reference), the packed
-     drain kernel must not; the child's failure fails the run;
-  5. per kernel at the n=64 shapes and at n=256 (`fuse_ab`'s): device
+     kv_directory n=64 crash_dirty red/green pair of `churn.json` and
+     the kv_directory srsp fused replica cell of `many.json`, held to
+     the same golden cells, with the launch counts set to 0 first: the
+     bool drain kernel, its replica instance and trip_plan must launch
+     (bool planes take plane_commit's plain version, as in the
+     reference), the packed drain kernels must not; the child's failure
+     fails the run;
+  5. per kernel at the n=64 shapes and at n=256 (`fuse_ab`'s), the
+     replica instances at R = 2 and 64 of those shapes: device
      time per call of the kernel and of its plain version (CUDA graph
      replay timed with CUDA events, `repro_torch.kernels.timing`), eager
      time per call (host launch included), the least time the card could
      take (bytes over 3.35 TB/s, or operations over 67 TOP/s), the
      launches of phase 4, and the device operations one call makes under
      torch.profiler: exactly one kernel record, no memset or fill, for
-     both drain_writeback instances, plane_commit and trip_plan, and for
-     rmsnorm and topk_router at their decode and prefill shapes;
+     both drain_writeback instances, plane_commit and trip_plan and
+     their replica instances, and for rmsnorm and topk_router at their
+     decode and prefill shapes;
   6. the device's busy time and idle share over one fused n=64 srsp run
      of kv_directory, producer_consumer_mc and worksteal
      (torch.profiler);
@@ -277,6 +301,7 @@ def check_kernels(torch, C, SF, FT) -> dict:
         errs["trip_plan"] = max(errs["trip_plan"], e)
     log(f"  trip_plan: {len(C.PLAN_CASES)} cases, max_abs_err="
         f"{errs['trip_plan']}")
+    errs.update(check_replica_kernels(torch, C, SF, FT, on, cpu))
     errs["selective_flush"] = 0.0
     for k, case in enumerate(C.FLUSH_CASES):
         bank, idx = C.flush_args(k, dev)
@@ -287,6 +312,60 @@ def check_kernels(torch, C, SF, FT) -> dict:
                     bank.cpu(), idx.cpu()))):
             raise AssertionError(f"selective_flush {case[0]} disagrees")
     log(f"  selective_flush: {len(C.FLUSH_CASES)} cases bitwise equal")
+    return errs
+
+
+def check_replica_kernels(torch, C, SF, FT, on, cpu) -> dict:
+    """Phase 3, the replica instances: each == its plain version on the
+    card and on the CPU, bitwise, on the `*_MANY_CASES` lists (stacked
+    inputs at R = 1, 2, 64, the edge cases at R = 2 and 3, idle
+    replicas beside busy ones)."""
+    dev = torch.device("cuda")
+    errs = {"drain_writeback_many": 0.0, "drain_writeback_bool_many": 0.0,
+            "plane_commit_many": 0.0, "trip_plan_many": 0.0}
+    for kernel, fn, bool_mask in (
+            ("drain_writeback_many", SF.drain_writeback_many, False),
+            ("drain_writeback_bool_many", SF.drain_writeback_bool_many,
+             True)):
+        for k, (name, kw, reps, idle) in enumerate(C.DRAIN_MANY_CASES):
+            xs = C.stacked(C.dw_inputs, reps, k, idle, **kw,
+                           bool_mask=bool_mask)
+            got = fn(*on(xs))
+            torch.cuda.synchronize()
+            e = max(max_abs_err(got, SF.drain_writeback_ref(*on(xs))),
+                    max_abs_err(got, SF.drain_writeback_ref(*cpu(xs))))
+            if e != 0.0:
+                raise AssertionError(f"{kernel} {name} disagrees")
+            errs[kernel] = max(errs[kernel], e)
+        log(f"  {kernel}: {len(C.DRAIN_MANY_CASES)} cases, max_abs_err="
+            f"{errs[kernel]}")
+    for k, (name, kw, reps, idle) in enumerate(C.COMMIT_MANY_CASES):
+        xs = C.stacked(C.pc_inputs, reps, k, idle, **kw)
+        args = on(xs)
+        got = FT.plane_commit_many(*args)
+        torch.cuda.synchronize()
+        e = max(max_abs_err(got, FT.plane_commit_ref(*on(xs))),
+                max_abs_err(got, FT.plane_commit_ref(*cpu(xs))),
+                max_abs_err(args, on(xs)))         # inputs left as they were
+        if e != 0.0:
+            raise AssertionError(f"plane_commit_many {name} disagrees")
+    log(f"  plane_commit_many: {len(C.COMMIT_MANY_CASES)} cases, "
+        f"max_abs_err={errs['plane_commit_many']}")
+    for k, (name, kw, reps, idle, cap, fenced) in enumerate(
+            C.PLAN_MANY_CASES):
+        xs = C.stacked(C.plan_inputs, reps, k, idle, **kw)
+        hor = C.horizons(xs[0], fenced)
+        hor = None if hor is None else torch.from_numpy(hor)
+        got = FT.trip_plan_many(*on(xs[:4]), on(xs[4:])[0] if cap else None,
+                                None if hor is None else hor.to(dev),
+                                remote_cap=cap)
+        want = FT.trip_plan_ref(*cpu(xs[:4]), cpu(xs[4:])[0] if cap
+                                else None, hor)
+        torch.cuda.synchronize()
+        if max_abs_err(list(got), list(want)) != 0.0:
+            raise AssertionError(f"trip_plan_many {name} disagrees")
+    log(f"  trip_plan_many: {len(C.PLAN_MANY_CASES)} cases, max_abs_err="
+        f"{errs['trip_plan_many']}")
     return errs
 
 
@@ -549,12 +628,11 @@ def app_drivers() -> list:
 def serving_scale(torch, launch_counters) -> dict:
     """Phase 4, the full-width kv_serving cell (the committed sweep's
     serving shape: n=64, 256 requests per agent, zipf 1.2, bursty): the
-    port's own trace drawn on the card, held to the reference's
-    (`trace.compare`), and served to a green check (the warm-up; its
-    makespan logged beside the golden one); then
-    the timed run on the reference's trace, held to its golden cell,
-    with the launch counts set to 0 just before it and read just
-    after."""
+    port's own trace drawn on the card and held to the reference's
+    (`trace.compare`; the replica phase serves own traces to a green
+    check); then the timed run on the reference's trace, held to its
+    golden cell, with the launch counts set to 0 just before it and read
+    just after."""
     from repro_torch.traffic import trace as TT
     from repro_torch.workloads import harness, kv_serving
     ref = next(c for c in load_golden("kv_serving")["cells"]
@@ -574,17 +652,6 @@ def serving_scale(torch, launch_counters) -> dict:
         raise AssertionError(f"{ctx}: the port's trace is not held to the "
                              f"reference's: {cmp}")
     run = harness.runner(ref["engine"])
-    own = kv_serving.build(ref["scenario"], n, seed=ref["seed"],
-                           device="cuda", traffic=cfg)
-    own_final = run(own.wl, own.state)
-    own_check = own.check(own_final)
-    own_makespan = harness.counters_dict(own_final.store)["makespan"]
-    log(f"  served on its own trace: ok={own_check['ok']} completed="
-        f"{own_check['completed']} of {own_check['offered']} makespan="
-        f"{own_makespan} (golden, on the reference's trace: "
-        f"{ref['counters']['makespan']})")
-    if not own_check["ok"]:
-        raise AssertionError(f"{ctx}: own trace check {own_check}")
     bench = kv_serving.with_trace(kv_serving.build(
         ref["scenario"], n, seed=ref["seed"], device="cuda", traffic=cfg),
         tr)
@@ -607,10 +674,115 @@ def serving_scale(torch, launch_counters) -> dict:
         f"launches/run={launches} latency={check['latency']}")
     return {"cell": ctx, **row, "steady_s": steady,
             "launches_per_run": launches, "trace_generation_s": gen_s,
-            "trace_compare": cmp, "latency": check["latency"],
-            "own_trace_check": {k: own_check[k] for k in (
-                "ok", "check_fails", "completed", "offered")},
-            "own_trace_makespan": own_makespan}
+            "trace_compare": cmp, "latency": check["latency"]}
+
+
+def many_cell_args(cell, traces) -> dict:
+    """`sweep.run_vmapped_cell`'s arguments for a cell of
+    `golden/many.json`: its fault's protocol, and for kv_serving the
+    reference's traces of its seeds with their traffic."""
+    from repro_torch.core import protocol as P
+    from repro_torch.workloads import faults
+    kw = {}
+    if cell["fault"]:
+        kw["proto"] = getattr(faults, cell["fault"])(
+            P.get_protocol(cell["scenario"]))
+    if "traces" in cell:
+        kw["traces"] = [traces[t][0] for t in cell["traces"]]
+        kw["build_kw"] = {"traffic": traces[cell["traces"][0]][1]["config"]}
+    return kw
+
+
+def many_golden(launch_counters, cells=None) -> list:
+    """Phase 4, the replica axis: every cell of `golden/many.json` (or
+    `cells`) through `sweep.run_vmapped_cell` on the card, one replica run
+    of two seeds a cell after one warm-up run of the first, every lane
+    held with `==` to the reference's `run_*_many` lanes (counters,
+    events, check_ok, check_fails).  Logs each cell's
+    `steady_s_per_run`, `steady_s_per_replica`, trips and launches a run
+    (with the check's solo drain of each lane); a fused run must launch
+    `trip_plan_many` once a pass; the `remote_batch_ab` pair's makespans
+    are equal."""
+    from repro_torch.workloads import sweep
+    doc = load_golden("many")["cells"]
+    cells = doc if cells is None else cells
+    traces = load_traces()
+
+    def run(cell, warmup=False):
+        return sweep.run_vmapped_cell(
+            cell["workload"], cell["scenario"], cell["n_agents"],
+            cell["seeds"], cell["engine"], device="cuda", warmup=warmup,
+            **many_cell_args(cell, traces))
+
+    run(cells[0])                            # the warm-up, not counted
+    rows = []
+    for cell in cells:
+        before = [f.launches for f in launch_counters]
+        row = run(cell)
+        row["launches_per_run"] = {f.__name__: f.launches - b for f, b in
+                                   zip(launch_counters, before)}
+        ctx = (f"{cell['workload']} {cell['scenario']} n={cell['n_agents']} "
+               f"seeds={cell['seeds']} {cell['engine']} {cell['fault']}")
+        for lane, ref in zip(row["lanes"], cell["lanes"]):
+            held(f"{ctx} seed {lane['seed']}", lane, ref)
+        plans = row["launches_per_run"].get("trip_plan_many")
+        if cell["engine"] == "fused" and plans is not None \
+                and plans != row["trips"] + 1:
+            raise AssertionError(f"{ctx}: {plans} trip_plan_many launches "
+                                 f"in {row['trips']} trips")
+        log(f"  {ctx}: makespans={[r['counters']['makespan'] for r in row['lanes']]}"
+            f" steady_s_per_run={row['steady_s_per_run']} "
+            f"steady_s_per_replica={row['steady_s_per_replica']} "
+            f"trips={row['trips']} launches/run={row['launches_per_run']}")
+        rows.append(dict(row, fault=cell["fault"]))
+    pair = [r for r in rows if (r["workload"], r["engine"])
+            == ("producer_consumer_mc", "batched")]
+    if len({r["makespan"] for r in pair}) > 1:
+        raise AssertionError(f"remote_batch_ab makespans differ: "
+                             f"{[r['makespan'] for r in pair]}")
+    return rows
+
+
+# the full-width replica run's replica count: lane 0 the reference's trace,
+# the others the port's own draws on the card
+SERVING_REPLICAS = 2
+
+
+def serving_replicas(launch_counters) -> dict:
+    """Phase 4, the full-width kv_serving shape as one fused replica run
+    of SERVING_REPLICAS replicas (seeds 4, 5, ...): lane 0 replays the
+    reference's trace of the full-width golden cell and is held to it,
+    the other lanes serve the traces the port draws on the card, each to
+    a green check.  Launch counts set to 0 just before and read just
+    after; no warm-up."""
+    from repro_torch.workloads import harness, kv_serving, sweep
+    ref = next(c for c in load_golden("kv_serving")["cells"]
+               if c["traffic"] == "serving")
+    tr, meta = load_traces()[ref["trace"]]
+    cfg, n = meta["config"], meta["n_agents"]
+    seeds = list(range(ref["seed"], ref["seed"] + SERVING_REPLICAS))
+    bench = kv_serving.build("srsp", n, seed=seeds[0], device="cuda",
+                             traffic=cfg)
+
+    def states():
+        own = harness.init_many(kv_serving.init_state, bench.wl, seeds,
+                                "cuda")
+        return kv_serving.with_traces(
+            bench, [tr] + [None] * (len(seeds) - 1), own).state
+
+    row, launches = counted(launch_counters, lambda: sweep.run_vmapped_cell(
+        "kv_serving", "srsp", n, seeds, "fused", device="cuda",
+        build_kw={"traffic": cfg}, warmup=False, states=states))
+    ctx = f"kv_serving srsp n={n} seeds={seeds} fused {cfg}"
+    held(f"{ctx} lane 0", row["lanes"][0], ref)
+    if not row["check_ok"]:
+        raise AssertionError(f"{ctx}: a lane is red: {row['lanes']}")
+    log(f"  {ctx}: makespans={[r['counters']['makespan'] for r in row['lanes']]}"
+        f" completed={[r['completed'] for r in row['lanes']]} "
+        f"steady_s_per_run={row['steady_s_per_run']} steady_s_per_replica="
+        f"{row['steady_s_per_replica']} trips={row['trips']} "
+        f"launches/run={launches}")
+    return dict(row, launches_per_run=launches)
 
 
 def remote_batches() -> dict:
@@ -672,27 +844,57 @@ def bool_layout_child(torch, SF, FT) -> int:
     log(f"    launches in the bool-layout churn cells: {churn_launches}")
     for name in launches:
         launches[name] += churn_launches[name]
-    print(json.dumps({"rows": rows, "churn": churn, "launches": launches}))
+    many_counters = (SF.drain_writeback_many, SF.drain_writeback_bool_many)
+    cell = next(c for c in load_golden("many")["cells"] if (
+        c["workload"], c["scenario"], c["engine"])
+        == ("kv_directory", "srsp", "fused"))
+    many, many_launches = counted(many_counters,
+                                  lambda: many_golden((), [cell]))
+    if not many_launches["drain_writeback_bool_many"] \
+            or many_launches["drain_writeback_many"]:
+        raise AssertionError(f"bool layout replica launches {many_launches}"
+                             f": want the bool replica drain, no packed one")
+    log(f"    launches in the bool-layout replica cell: {many_launches}")
+    launches.update(many_launches)
+    print(json.dumps({"rows": rows, "churn": churn, "many": many,
+                      "launches": launches}))
     return 0
 
 
-def run_bool_layout() -> dict:
-    """Phase 4, the bool layout: this script in a child process with
-    REPRO_NO_PACK=1 (the layout is read once at import).  Its log lines
-    are echoed; a nonzero exit fails the run."""
-    env = dict(os.environ, REPRO_NO_PACK="1")
-    out = subprocess.run([sys.executable, os.path.abspath(__file__),
-                          "--bool-layout-child"], env=env,
-                         capture_output=True, text=True, timeout=600)
+def replica_child(SF, FT) -> int:
+    """Phase 4's replica runs in a child process, so that the process
+    that traces with torch.profiler (phases 5 and 6) never runs the
+    replica engines (PERF.md §7): the cells of `golden/many.json`, then
+    the full-width kv_serving shape, with the launch counts set to 0
+    just before each and read just after, one JSON line last."""
+    counters = (SF.drain_writeback, SF.drain_writeback_many,
+                FT.plane_commit_many, FT.trip_plan_many)
+    many, launches = counted(counters, lambda: many_golden(counters))
+    log(f"    launches in the replica cells: {launches}")
+    scale = serving_replicas(counters)
+    for name in launches:
+        launches[name] += scale["launches_per_run"][name]
+    print(json.dumps({"many": many, "serving_replicas": scale,
+                      "launches": launches}))
+    return 0
+
+
+def run_child(flag: str, tag: str, env=None) -> dict:
+    """This script in a child process with `flag`: its log lines are
+    echoed under `[tag]` and its last line's JSON returned; a nonzero
+    exit fails the run."""
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), flag],
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
     lines = out.stdout.strip().splitlines()
     for line in lines[:-1]:
-        log(f"  [bool] {line.strip()}")
+        log(f"  [{tag}] {line.strip()}")
     if out.returncode != 0:
-        raise AssertionError(f"the bool-layout child failed "
+        raise AssertionError(f"the {tag} child failed "
                              f"({out.returncode}):\n{out.stdout[-4000:]}\n"
                              f"{out.stderr[-4000:]}")
     res = json.loads(lines[-1])
-    log(f"    launches in the bool-layout run: {res['launches']}")
+    log(f"    launches in the {tag} child: {res['launches']}")
     return res
 
 
@@ -709,8 +911,16 @@ SIM_REPLACES = {
     "plane_commit": "src/repro/kernels/fused_turn/kernel.py:138",
     "trip_plan": "src/repro/kernels/fused_turn/kernel.py:94",
 }
-# the bool instance is a template instance of the packed kernel's source
-SIM_SOURCES = {"drain_writeback_bool": "drain_writeback"}
+# the replica instances (`*_many`) replace the same Pallas kernels under
+# jax.vmap's batch grid axis
+SIM_REPLACES.update({f"{k}_many": v for k, v in list(SIM_REPLACES.items())})
+# the bool instance is a template instance of the packed kernel's source,
+# and each replica instance lives in its solo kernel's source
+SIM_SOURCES = {"drain_writeback_bool": "drain_writeback",
+               "drain_writeback_many": "drain_writeback",
+               "drain_writeback_bool_many": "drain_writeback",
+               "plane_commit_many": "plane_commit",
+               "trip_plan_many": "trip_plan"}
 
 
 def measure(torch, C, SF, FT, errs, launches) -> list:
@@ -1291,6 +1501,8 @@ def main(argv=None) -> int:
                     help="also write every record as JSON to this path")
     ap.add_argument("--bool-layout-child", action="store_true",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--replica-child", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1315,6 +1527,8 @@ def main(argv=None) -> int:
         return 2
     if args.bool_layout_child:
         return bool_layout_child(torch, SF, FT)
+    if args.replica_child:
+        return replica_child(SF, FT)
     t_start = time.perf_counter()
 
     smi = nvidia_smi()
@@ -1366,13 +1580,24 @@ def main(argv=None) -> int:
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the main path never launched: "
                              f"{launches}")
+    phase(t_start, "[4] replica axis, in a child process: golden/many.json "
+                   "through run_vmapped_cell, then the full-width "
+                   f"kv_serving shape, {SERVING_REPLICAS} replicas")
+    replica = run_child("--replica-child", "replica")
+    many, scale_many = replica["many"], replica["serving_replicas"]
+    for name in ("drain_writeback_many", "plane_commit_many",
+                 "trip_plan_many"):
+        launches[name] = replica["launches"][name]
+    if not all(launches.values()):
+        raise AssertionError(f"a replica kernel never launched: {launches}")
     phase(t_start, "[4] co-scheduled remote batches")
     batches = remote_batches()
     phase(t_start, "[4] the bool metadata layout, REPRO_NO_PACK=1 in a "
                    "child process")
-    bool_run = run_bool_layout()
-    launches["drain_writeback_bool"] = \
-        bool_run["launches"]["drain_writeback_bool"]
+    bool_run = run_child("--bool-layout-child", "bool",
+                         dict(os.environ, REPRO_NO_PACK="1"))
+    for name in ("drain_writeback_bool", "drain_writeback_bool_many"):
+        launches[name] = bool_run["launches"][name]
 
     phase(t_start, "[5] kernel times at the n=64 shapes and the serving "
                    "shapes")
@@ -1415,7 +1640,8 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump({"card": smi, "build_s": build_s, "cells": rows,
                        "apps": apps, "serving_scale": scale,
-                       "churn": churn,
+                       "churn": churn, "many": many,
+                       "serving_replicas": scale_many,
                        "remote_batches": batches,
                        "bool_layout": bool_run,
                        "kernels": kernels, "profile": prof,

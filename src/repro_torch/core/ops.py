@@ -52,11 +52,12 @@ def _acquire_rem(proto: P.Protocol, cfg, st, rem, addrs, expect, new):
         return proto.acquire_rem_b(cfg, st, rem, addrs, expect, new)
     lanes = torch.arange(cfg.n_caches, device=rem.device)
     cid = rem.to(torch.int32).argmax()
-    if bool(rem.any()):
-        st, old_c = proto.acquire_rem(cfg, st, cid, addrs[cid], expect[cid],
-                                      new[cid])
-    else:
-        old_c = 0
+    st, old_c = P.cond(
+        rem.any(),
+        lambda s: proto.acquire_rem(cfg, s, cid, addrs[cid], expect[cid],
+                                    new[cid]),
+        lambda s: (s, torch.zeros((), dtype=torch.int32, device=rem.device)),
+        st)
     return st, torch.where(lanes == cid, old_c, torch.zeros_like(addrs))
 
 
@@ -64,9 +65,10 @@ def _release_rem(proto: P.Protocol, cfg, st, rem, addrs, vals):
     if proto.release_rem_b is not None:
         return proto.release_rem_b(cfg, st, rem, addrs, vals)
     cid = rem.to(torch.int32).argmax()
-    if bool(rem.any()):
-        st = proto.release_rem(cfg, st, cid, addrs[cid], vals[cid])
-    return st
+    return P.cond(rem.any(),
+                  lambda s: proto.release_rem(cfg, s, cid, addrs[cid],
+                                              vals[cid]),
+                  lambda s: s, st)
 
 
 def acquire(proto: P.Protocol, cfg: P.ProtoConfig, st: P.Store, active,

@@ -23,8 +23,11 @@ nothing is updated in place, so an old store stays valid beside the new
 one, as in the JAX package.  Where JAX scatters with
 `mode="drop"`, the port scatters into one spare row past the end and
 slices it off (`_scatter_rows`); only that row ever receives duplicate
-indices.  Where JAX branches with `lax.cond`, the port branches on the
-host on a scalar read back from the device.
+indices.  Where JAX branches with `lax.cond`, the port calls `cond`:
+on one replica it branches on the host on a scalar read back from the
+device; on the replica path (`torch.func.vmap` over stacked states, the
+harness's `run_*_many`) it runs both branches and selects per replica,
+as `lax.cond` lowers under `jax.vmap`.
 
 Two API layers, as in the JAX package: batched multi-cache ops (`b_*`,
 `*_b`: an `active [n_caches]` mask plus per-cache operands) and the
@@ -35,6 +38,7 @@ planes) and, in the harness, `trip_plan`.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from typing import Callable, NamedTuple, Tuple
@@ -120,6 +124,77 @@ def make_store(cfg: ProtoConfig, device=None) -> Store:
 # --------------------------------------------------------------------------
 # helpers
 # --------------------------------------------------------------------------
+
+def tree_map(fn: Callable, *trees):
+    """`fn` over the leaves of like NamedTuple trees (tensors at the
+    leaves), rebuilt in their types."""
+    first = trees[0]
+    if isinstance(first, tuple):
+        parts = [tree_map(fn, *xs) for xs in zip(*trees)]
+        return type(first)(*parts) if hasattr(first, "_fields") \
+            else tuple(parts)
+    return fn(*trees)
+
+
+def select(pred, yes, no):
+    """Leaf-wise `torch.where(pred, yes, no)` over two like trees."""
+    return tree_map(lambda a, b: torch.where(pred, a, b), yes, no)
+
+
+def cond(pred, yes: Callable, no: Callable, *args):
+    """`lax.cond(pred, yes, no, *args)`.  A plain 0-d `pred` is read on
+    the host and one branch runs; a replica-batched one (under vmap) runs
+    both branches and selects per replica."""
+    if not common.batched(pred):
+        return yes(*args) if bool(pred) else no(*args)
+    return select(pred, yes(*args), no(*args))
+
+
+# the innermost `lane_bound` block: (bound, the overflow flags of its
+# lane scans); None outside every block
+_LANE_BOUND = None
+
+
+@contextlib.contextmanager
+def lane_bound(k: int):
+    """Within the block, every `lane_scan` on the replica path takes at
+    most `k` active lanes a replica.  The replica engines set it around a
+    remote turn form, whose ops act for the form's masked agents only:
+    one for the serial remote turn, the largest remote batch for
+    `remote_turn_b`.  Yields a list that gathers, for each such scan, a
+    bool that is True where the replica's mask held more than `k` lanes
+    (lanes the scan left out); the caller must see that none is set."""
+    global _LANE_BOUND
+    saved, _LANE_BOUND = _LANE_BOUND, (k, [])
+    try:
+        yield _LANE_BOUND[1]
+    finally:
+        _LANE_BOUND = saved
+
+
+def lane_scan(active, fn: Callable, carry):
+    """`carry = fn(carry, j)` for every active lane j in ascending order
+    (the reference's masked `lax.scan` over lanes).  On one replica only
+    the active lanes run, found on the host.  On the replica path step k
+    takes each replica's k-th active lane, for k up to the lane count or
+    the `lane_bound` in force, and a replica with fewer keeps the carry;
+    a replica with more is flagged to the block's caller."""
+    if not common.batched(active):
+        for j in torch.nonzero(active).flatten().tolist():
+            carry = fn(carry, j)
+        return carry
+    n = active.shape[0]
+    # active lanes first, in ascending order
+    order = torch.argsort((~active).to(torch.int8), stable=True)
+    count = active.sum()
+    steps = n
+    if _LANE_BOUND is not None:
+        steps = min(n, _LANE_BOUND[0])
+        _LANE_BOUND[1].append(count > steps)
+    for k in range(steps):
+        carry = select(k < count, fn(carry, order[k]), carry)
+    return carry
+
 
 def _vec(x, n: int, dtype, device) -> torch.Tensor:
     """`x` (Python scalar, 0-d or [n] tensor) as a contiguous [n] tensor."""
@@ -601,15 +676,19 @@ def srsp_remote_acquire(cfg: ProtoConfig, st: Store, cid, addr, expect, new
     """atomic_CAS_rem_acq_cmp under sRSP (§4.2)."""
     addrs = _i32(cfg, st, addr)
     own_ptr = tables.lr_lookup(st.lr, addrs)[cid]
-    if bool(own_ptr >= 0):
+
+    def same_cu(st):
         # local sharer on the same CU: order its releases, CAS at L2
         st, _ = drain_fifo(cfg, st, cid, own_ptr)
-        st = st._replace(lr=_mask_rows(_one_hot(cfg, st, cid),
-                                       tables.lr_remove(st.lr, addrs),
-                                       st.lr))
-    else:
+        return st._replace(lr=_mask_rows(_one_hot(cfg, st, cid),
+                                         tables.lr_remove(st.lr, addrs),
+                                         st.lr))
+
+    def cross_cu(st):
         st = _probe_and_selective_flush(cfg, st, cid, addr)
-        st = invalidate_cache(cfg, st, cid)
+        return invalidate_cache(cfg, st, cid)
+
+    st = cond(own_ptr >= 0, same_cu, cross_cu, st)
     st, old = _atomic_l2(cfg, st, cid, addr, expect, new, True)
     return st._replace(counters=_count(st.counters, remote_syncs=1.0)), old
 
@@ -719,10 +798,9 @@ def srsp_remote_release_b(cfg: ProtoConfig, st: Store, active, addrs, vals
     addrs = _i32(cfg, st, addrs)
     st, _ = b_drain(cfg, st, _where(active, DRAIN_ALL, INVALID), active)
     st, _ = b_atomic_l2(cfg, st, active, addrs, 0, vals, False)
-    pa = st.pa
-    for j in torch.nonzero(active).flatten().tolist():
-        pa = tables.pa_insert(pa, addrs[j].expand(n))
-    st = st._replace(pa=pa)
+    st = st._replace(pa=lane_scan(
+        active, lambda pa, j: tables.pa_insert(pa, addrs[j].expand(n)),
+        st.pa))
     fact = active.to(F32)
     tot = fact.sum()
     c = st.counters

@@ -42,10 +42,8 @@ def _at(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def _put(x: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
     """Copy of `x [n, k]` with x[i, idx[i]] = vals[i]."""
-    out = x.clone()
-    out.scatter_(1, idx[:, None], torch.as_tensor(
+    return x.scatter(1, idx[:, None], torch.as_tensor(
         vals, dtype=x.dtype, device=x.device).expand(x.shape[0])[:, None])
-    return out
 
 
 def push(f: SFifo, addr: torch.Tensor, force_tail: torch.Tensor

@@ -46,6 +46,17 @@
 // The output is a fresh bank (no aliasing with l2).  One call is one
 // kernel launch: no memset, no scratch in device memory.
 //
+// The replica instance (the Pallas kernel's batch grid axis under
+// `jax.vmap`, the harness's `run_*_many`) merges R banks in one launch:
+// every operand has a leading [R] axis, and the grid is (destination
+// tile, replica), blockIdx.y the replica.  A CTA offsets each pointer to
+// its replica's slice, so its owner map reads only that replica's index
+// list and last-writer-wins holds within a replica.  The rows a tile
+// spread one wave of CTAs over all R banks.  The replica instances are
+// template instances (kMany) beside the solo ones, which keep no replica
+// offset code: with it the solo kernel ran 7 % slower at n=64 (PERF.md
+// §6); R = 1 takes the solo instance.
+//
 // Bound on the card: bytes.  The function must read each bank word once,
 // from l2 or from the one row that owns it (nb*W*4 together), write the
 // output bank (nb*W*4), and read the packed mask (m*L*4) and the index
@@ -186,7 +197,7 @@ __device__ __forceinline__ long long row_of(int o, int W) {
   return static_cast<long long>(o - 1) * W;
 }
 
-template <bool kVec, int kMask>
+template <bool kVec, int kMask, bool kMany>
 __global__ void __launch_bounds__(kThreads, 1)
 drain_writeback_kernel(const int32_t* __restrict__ l2,
                        const int32_t* __restrict__ rows,
@@ -198,6 +209,17 @@ drain_writeback_kernel(const int32_t* __restrict__ l2,
   constexpr int kU = kVec ? 4 : 1;                   // words per unit
   constexpr int kPer = kWordsPerThread / kU;         // units a thread
   __shared__ __align__(16) int32_t owner[kOwnerWords];
+
+  if constexpr (kMany) {
+    // this CTA's replica: its bank, rows, mask and index list
+    const long long rep = blockIdx.y;
+    l2 += rep * nb * W;
+    out += rep * nb * W;
+    rows += rep * m * W;
+    idx += rep * m;
+    dirty = static_cast<const char*>(dirty)
+        + rep * m * (kMask == kPacked ? L * 4 : W);
+  }
 
   const int t = threadIdx.x;
   const int row0 = blockIdx.x * R;
@@ -265,34 +287,42 @@ drain_writeback_kernel(const int32_t* __restrict__ l2,
   }
 }
 
-using Kernel = decltype(&drain_writeback_kernel<true, kPacked>);
+using Kernel = decltype(&drain_writeback_kernel<true, kPacked, false>);
 
-template <int kMask>
+template <int kMask, bool kMany>
 Kernel pick(bool vec) {
-  return vec ? drain_writeback_kernel<true, kMask>
-             : drain_writeback_kernel<false, kMask>;
+  return vec ? drain_writeback_kernel<true, kMask, kMany>
+             : drain_writeback_kernel<false, kMask, kMany>;
 }
 
-// L: pairs an entry, ceil(W / kChunk) of the mask's kind
+template <int kMask>
+Kernel pick(bool vec, bool many) {
+  return many ? pick<kMask, true>(vec) : pick<kMask, false>(vec);
+}
+
+// L: pairs an entry, ceil(W / kChunk) of the mask's kind; reps: banks
 int launch(const void* l2, const void* rows, const void* dirty,
            const void* idx, void* out, int nb, int W, int m, int L,
-           bool packed, cudaStream_t s) {
-  if (W < 1 || W > kOwnerWords || nb < 1 || m < 0
+           bool packed, int reps, cudaStream_t s) {
+  if (W < 1 || W > kOwnerWords || nb < 1 || m < 0 || reps < 1
+      || reps > 65535
       || L != (W + (packed ? 31 : 15)) / (packed ? 32 : 16)
       || static_cast<long long>(m) * L > INT32_MAX - kBatch * kThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // rows a CTA: the bank spread over one wave of CTAs, so each CTA's
+  // rows a CTA: the banks spread over one wave of CTAs, so each CTA's
   // share of the atomics is small; at most what its owner map holds
-  const int R = min(kOwnerWords / W, repro_cdiv(nb, kWaveCtas));
-  const int grid = repro_cdiv(nb, R);
+  const int R = min(kOwnerWords / W,
+                    repro_cdiv(static_cast<long long>(nb) * reps, kWaveCtas));
+  const dim3 grid(repro_cdiv(nb, R), reps);
   const bool vec = W % 4 == 0
       && ((reinterpret_cast<uintptr_t>(l2) | reinterpret_cast<uintptr_t>(rows)
            | reinterpret_cast<uintptr_t>(out)) & 15u) == 0;
   const bool mask16 = W % 16 == 0
       && (reinterpret_cast<uintptr_t>(dirty) & 15u) == 0;
-  auto kernel = packed ? pick<kPacked>(vec)
-      : mask16 ? pick<kBool16>(vec) : pick<kBoolBytes>(vec);
+  const bool many = reps > 1;
+  auto kernel = packed ? pick<kPacked>(vec, many)
+      : mask16 ? pick<kBool16>(vec, many) : pick<kBoolBytes>(vec, many);
   kernel<<<grid, kThreads, 0, s>>>(
       static_cast<const int32_t*>(l2), static_cast<const int32_t*>(rows),
       dirty, static_cast<const int32_t*>(idx), static_cast<int32_t*>(out),
@@ -308,7 +338,18 @@ REPRO_EXPORT int drain_writeback_launch(const void* l2, const void* rows,
                                         const void* dirty, const void* idx,
                                         void* out, int nb, int W, int m,
                                         int L, void* stream) {
-  return launch(l2, rows, dirty, idx, out, nb, W, m, L, true,
+  return launch(l2, rows, dirty, idx, out, nb, W, m, L, true, 1,
+                static_cast<cudaStream_t>(stream));
+}
+
+// The replica instance: every operand above with a leading [R] axis,
+// R <= 65535 -> out [R, nb, W].
+REPRO_EXPORT int drain_writeback_many_launch(const void* l2, const void* rows,
+                                             const void* dirty,
+                                             const void* idx, void* out,
+                                             int nb, int W, int m, int L,
+                                             int R, void* stream) {
+  return launch(l2, rows, dirty, idx, out, nb, W, m, L, true, R,
                 static_cast<cudaStream_t>(stream));
 }
 
@@ -321,5 +362,17 @@ REPRO_EXPORT int drain_writeback_bool_launch(const void* l2,
                                              int nb, int W, int m,
                                              void* stream) {
   return launch(l2, rows, dirty, idx, out, nb, W, m, (W + 15) / 16, false,
-                static_cast<cudaStream_t>(stream));
+                1, static_cast<cudaStream_t>(stream));
+}
+
+// The replica instance of the bool entry: a leading [R] axis on every
+// operand, R <= 65535 -> out [R, nb, W].
+REPRO_EXPORT int drain_writeback_bool_many_launch(const void* l2,
+                                                  const void* rows,
+                                                  const void* dirty,
+                                                  const void* idx, void* out,
+                                                  int nb, int W, int m, int R,
+                                                  void* stream) {
+  return launch(l2, rows, dirty, idx, out, nb, W, m, (W + 15) / 16, false,
+                R, static_cast<cudaStream_t>(stream));
 }

@@ -31,6 +31,13 @@
 //     behind a barrier, in 16-byte units, and one thread per 16-byte
 //     unit without the barrier, were both slower at the n=64 shape.
 //
+// The replica instance (the Pallas kernel's batch grid axis under
+// `jax.vmap`, the harness's `run_*_many`) is this kernel over R*n lanes:
+// [R, n, nb, L] planes and [R, n] operands are, row for row, the planes
+// and operands of R*n lanes, each lane's word range its own, so one
+// launch of the same entry serves every replica (the wrapper passes
+// n = R*n; the 32-bit bound R*n*nb*L < 2^31 is checked here).
+//
 // Bound on the card: bytes.  It reads and writes both planes
 // (4 * n*nb*L*4 bytes) plus the per-lane operands (10n bytes) and the
 // flags (2n); at n=64 (nb=128, L=1) that is ~132 KB, 0.04 us at

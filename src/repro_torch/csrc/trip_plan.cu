@@ -42,9 +42,16 @@
 //     read only when remote_cap: the wrapper passes a null pointer
 //     otherwise.
 //
+// The replica instance (the Pallas kernel's batch grid axis under
+// `jax.vmap`, the harness's `run_fused_many`): R plans in one launch, one
+// CTA a replica (gridDim R), each reading row r of [R, n] inputs and
+// writing row r of the [R, n] masks and wg[r].  The fence is a horizon
+// per replica ([R], or none).  The solo entry launches the same kernel
+// with one CTA and its scalar horizon.
+//
 // Bound on the card: bytes and, with remote_cap, n*n compares; at the
 // main path's n=64 both are nanoseconds and one launch of one CTA is the
-// real cost.
+// real cost; R replicas move R times the bytes.
 #include "common.cuh"
 
 namespace {
@@ -92,6 +99,7 @@ __global__ void trip_plan_kernel(const float* __restrict__ clocks,
                                  const bool* __restrict__ can_r_in,
                                  const float* __restrict__ bound,
                                  const int32_t* __restrict__ raddr,
+                                 const float* __restrict__ horizons,
                                  float horizon, int remote_cap, int n,
                                  bool* __restrict__ lmask,
                                  bool* __restrict__ rmask,
@@ -100,6 +108,19 @@ __global__ void trip_plan_kernel(const float* __restrict__ clocks,
   __shared__ float s_clock[kMaxN];
   __shared__ int32_t s_addr[kMaxN];
   __shared__ bool s_r0[kMaxN];
+
+  // this CTA's replica: row r of every [R, n] operand
+  const int r = blockIdx.x;
+  const long long row = static_cast<long long>(r) * n;
+  clocks += row;
+  can_l_in += row;
+  can_r_in += row;
+  bound += row;
+  if (remote_cap) raddr += row;
+  lmask += row;
+  rmask += row;
+  wg_out += r;
+  if (horizons != nullptr) horizon = horizons[r];
 
   const int i = threadIdx.x;
   const bool in = i < n;
@@ -185,7 +206,32 @@ REPRO_EXPORT int trip_plan_launch(const void* clocks, const void* can_l,
   trip_plan_kernel<<<1, threads, 0, s>>>(
       static_cast<const float*>(clocks), static_cast<const bool*>(can_l),
       static_cast<const bool*>(can_r), static_cast<const float*>(bound),
-      static_cast<const int32_t*>(raddr), horizon, remote_cap, n,
+      static_cast<const int32_t*>(raddr), nullptr, horizon, remote_cap, n,
+      static_cast<bool*>(lmask), static_cast<bool*>(rmask),
+      static_cast<int32_t*>(wg));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The replica instance: every operand with a leading [R] axis (clocks,
+// bound [R, n] f32; can_l, can_r [R, n] bool; raddr [R, n] int32 or null
+// without remote_cap; horizon [R] f32 or null: no fence) -> lmask, rmask
+// [R, n] bool, wg [R] int32.  n <= 1024, 1 <= R <= 2^31 - 1.
+REPRO_EXPORT int trip_plan_many_launch(const void* clocks, const void* can_l,
+                                       const void* can_r, const void* bound,
+                                       const void* raddr, const void* horizon,
+                                       int remote_cap, int R, int n,
+                                       void* lmask, void* rmask, void* wg,
+                                       void* stream) {
+  if (n < 1 || n > kMaxN || R < 1 || (remote_cap && raddr == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int threads = ((n + 31) / 32) * 32;
+  trip_plan_kernel<<<R, threads, 0, s>>>(
+      static_cast<const float*>(clocks), static_cast<const bool*>(can_l),
+      static_cast<const bool*>(can_r), static_cast<const float*>(bound),
+      static_cast<const int32_t*>(raddr),
+      static_cast<const float*>(horizon), kBig, remote_cap, n,
       static_cast<bool*>(lmask), static_cast<bool*>(rmask),
       static_cast<int32_t*>(wg));
   return static_cast<int>(cudaGetLastError());

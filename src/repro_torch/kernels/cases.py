@@ -10,7 +10,9 @@ and at the widths of the other configs (rmsnorm up to d=12288, rows
 and bases off 16 bytes; the router up to E=256 and underflowed
 probabilities), and the cross-pod sync's flattened
 banks for selective_flush (pads, indices at or above nb, widths and
-base pointers off 16 bytes).  `chip_smoke.py` and
+base pointers off 16 bytes).  The simulator's kernels' replica instances
+take the `*_MANY_CASES` lists: `stacked` inputs at R in `REPLICAS`, the
+edge cases at R=2 and R=3, and idle replicas beside busy ones.  `chip_smoke.py` and
 `tests/test_torch_cuda.py` run these lists on the card, the serving
 kernels' through `check_float` and `check_router`;
 `tests/test_torch_kernels.py` and `tests/test_torch_model_kernels.py`
@@ -195,6 +197,73 @@ PLAN_CASES = (
 def horizon(clocks, fenced):
     """The fenced cases' event horizon: the median clock (None: no fence)."""
     return float(np.sort(clocks)[len(clocks) // 2]) if fenced else None
+
+
+# the replica instances' replica counts (the harness's `run_*_many`)
+REPLICAS = (1, 2, 64)
+# what an idle replica holds, by generator: every drain entry a pad, no
+# lane setting a bit, no agent ready
+_IDLE = {"dw_inputs": lambda xs: xs[3].fill(-1),
+         "pc_inputs": lambda xs: (xs[4].fill(False), xs[5].fill(False)),
+         "plan_inputs": lambda xs: (xs[1].fill(False), xs[2].fill(False))}
+
+
+def stacked(gen, reps: int, seed: int, idle=(), **kw):
+    """`reps` replicas of a generator's inputs stacked on a leading axis
+    (the replica instances' operands), replica r drawn from seed
+    1000 * seed + r; the replicas listed in `idle` get nothing to do
+    (every drain entry a pad, no bit set, no agent ready)."""
+    cols = [list(gen(1000 * seed + r, **kw)) for r in range(reps)]
+    for r in idle:
+        _IDLE[gen.__name__](cols[r])
+    return tuple(np.stack(c) for c in zip(*cols))
+
+
+def horizons(clocks, fenced):
+    """[R] event horizons of stacked clocks: each replica's median clock
+    (None: no fence)."""
+    return np.array([horizon(c, True) for c in clocks], np.float32) \
+        if fenced else None
+
+
+# (name, generator keywords, R, idle replicas); the seed is the case's
+# index.  Every replica count at the n=64 shapes, the edge cases at R=2
+# and R=3, and an idle replica beside busy ones.
+DRAIN_MANY_CASES = (
+    [(f"b_drain n=64 R={r}", dict(nb=128, w=16, m=1024), r, ())
+     for r in REPLICAS]
+    + [(f"b_writeback n=64 R={r}", dict(nb=128, w=16, m=64, dup=False), r,
+        ()) for r in REPLICAS]
+    + [("dups+pads+out-of-range, bit 31, R=2",
+        dict(nb=32, w=64, m=48, oor=True), 2, ()),
+       ("W=48 ragged second lane, R=3", dict(nb=64, w=48, m=200, oor=True),
+        3, ()),
+       ("past one tile, R=2", dict(nb=2048, w=16, m=512, oor=True,
+                                   hot=(0, 767, 768, 2047)), 2, ()),
+       ("recovery drain n=64, R=2", dict(nb=128, w=16, m=64 * 16, pad=False,
+                                         recovery=(5, 16)), 2, ()),
+       ("an idle replica, R=3", dict(nb=128, w=16, m=1024), 3, (1,)),
+       ("b_drain n=256, R=2", dict(nb=512, w=16, m=4096), 2, ())])
+COMMIT_MANY_CASES = (
+    [(f"n=64 R={r}", dict(n=64, nb=128, w=16), r, ()) for r in REPLICAS]
+    + [("ragged lane, out of range, R=2", dict(n=8, nb=4, w=40, oor=True),
+        2, ()),
+       ("slice of 6 words, R=3", dict(n=5, nb=3, w=40), 3, ()),
+       ("every lane on block 0, R=2", dict(n=64, nb=128, w=16, block0=True),
+        2, ()),
+       ("an idle replica, R=3", dict(n=64, nb=128, w=16), 3, (2,)),
+       ("n=256 R=2", dict(n=256, nb=512, w=16), 2, ())])
+PLAN_MANY_CASES = (
+    [(f"n=64 R={r} remote_cap={cap} fenced={fenced}", dict(n=64), r, (),
+      cap, fenced)
+     for r in REPLICAS for cap in (False, True) for fenced in (False, True)]
+    + [(f"n={n} R=2 remote_cap=True", dict(n=n), 2, (), True, False)
+       for n in (1, 33, 256, 1024)]
+    + [("n=33 R=3 ties=signed_zero", dict(n=33, ties="signed_zero"), 3, (),
+        True, True),
+       ("n=64 R=3 an idle replica", dict(n=64), 3, (0,), True, False),
+       ("n=64 R=64 idle replicas", dict(n=64), 64, (3, 40, 63), True,
+        True)])
 
 
 # --------------------------------------------------------------------------

@@ -7,6 +7,13 @@ Dispatch is by the tensor's device, decided per call:
   * CUDA tensors launch the kernel, or raise.  Nothing routes a CUDA
     tensor to the plain version.
 
+The simulator's kernels also have a replica instance, a leading [R]
+axis served by one launch.  Under `torch.func.vmap` a wrapper called on
+replica-batched tensors (`batched`) goes through a
+`torch.library.custom_op` whose vmap rule moves the replica axes to the
+front (`to_front`) and calls the replica wrapper once, which dispatches
+by device in the same way.
+
 Each kernel is one CUDA C++ source `csrc/<name>.cu` with a plain C
 interface.  On first use it is compiled with `nvcc -shared` for sm_90a
 into `build/` at the repository root, named by a hash of its source, and
@@ -35,6 +42,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LIBS: dict = {}
+_OPS: dict = {}
 
 
 def cdiv(a: int, b: int) -> int:
@@ -54,6 +62,44 @@ def resolve_device(device=None) -> torch.device:
                                "device='cpu' to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def batched(*xs) -> bool:
+    """True when any argument is a tensor that carries a
+    `torch.func.vmap` replica axis (the harness's `run_*_many`).  Outside
+    every vmap one call answers, so the solo path pays ~0.1 us."""
+    if torch._C._functorch.maybe_current_level() is None:
+        return False
+    return any(isinstance(x, torch.Tensor)
+               and torch._C._functorch.is_batchedtensor(x) for x in xs)
+
+
+def to_front(size: int, x, dim):
+    """A vmap rule's operand with its replica axis first, contiguous:
+    moved there from `dim`, or `x` repeated `size` times where `dim` is
+    None (an operand that is the same for every replica).  None stays
+    None."""
+    if x is None:
+        return None
+    x = x.expand(size, *x.shape) if dim is None else x.movedim(dim, 0)
+    return x.contiguous()
+
+
+def replica_op(name: str, schema: str, impl, rule):
+    """The `torch.library.custom_op` `repro_torch::<name>` of this copy of
+    the port, defined on first use: `impl` runs it on plain tensors and
+    `rule(info, in_dims, *args)` is its vmap rule.  A second copy of the
+    port in one process (`timing.load_tree`) takes a suffixed name."""
+    if name not in _OPS:
+        qual, k = name, 1
+        while hasattr(torch.ops.repro_torch, qual):
+            k += 1
+            qual = f"{name}_{k}"
+        op = torch.library.custom_op(f"repro_torch::{qual}", impl,
+                                     mutates_args=(), schema=schema)
+        op.register_vmap(rule)
+        _OPS[name] = op
+    return _OPS[name]
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:

@@ -22,6 +22,13 @@ scatter inverse, and the protocol engine's drain/writeback merge.
 Each kernel wrapper dispatches by device (`kernels/common.py`): CPU
 tensors take the plain version `<name>_ref`.  The source notes give each
 kernel's design and its bound.
+
+`drain_writeback_many` and `drain_writeback_bool_many` are the replica
+instances (the Pallas kernel's batch grid axis under `jax.vmap`): a
+leading [R] axis on every operand, one launch for every replica, each
+counting its own launches.  Under `torch.func.vmap`, `drain_writeback`
+on replica-batched tensors reaches them through a custom op's vmap rule
+(`common.replica_op`).
 """
 from __future__ import annotations
 
@@ -112,7 +119,19 @@ def drain_writeback_ref(l2: torch.Tensor, rows: torch.Tensor,
     Entries with indices outside [0, nb) write nothing.
 
     l2 [nb, W] int32; rows [m, W] int32; dirty [m, ceil(W/32)] int32
-    packed lanes or [m, W] bool; indices [m] int32."""
+    packed lanes or [m, W] bool; indices [m] int32.  The replica instance
+    takes a leading [R] axis on all four: replica r's entries merge into
+    its own bank only."""
+    if l2.ndim == 3:
+        reps, nb, w = l2.shape
+        m = indices.shape[1]
+        g = (indices >= 0) & (indices < nb)
+        base = torch.arange(reps, dtype=I32, device=l2.device)[:, None] * nb
+        out = drain_writeback_ref(
+            l2.reshape(reps * nb, w), rows.reshape(reps * m, w),
+            dirty.reshape((reps * m,) + tuple(dirty.shape[2:])),
+            torch.where(g, indices + base, -1).reshape(reps * m))
+        return out.view(reps, nb, w)
     nb, w = l2.shape
     m = indices.shape[0]
     g = (indices >= 0) & (indices < nb)
@@ -131,29 +150,40 @@ def drain_writeback_ref(l2: torch.Tensor, rows: torch.Tensor,
 
 def _launch(l2, rows, dirty, indices):
     """Check the inputs and launch the instance of `dirty`'s dtype: the
-    packed entry takes the lane count, the bool entry derives it."""
-    nb, w = l2.shape
-    m = indices.shape[0]
+    packed entry takes the lane count, the bool entry derives it.  A
+    leading [R] axis on every input launches the replica entry of that
+    instance: one launch over every replica's bank."""
+    nb, w = l2.shape[-2:]
+    lead = tuple(l2.shape[:-2])
+    m = indices.shape[-1]
     packed = dirty.dtype != torch.bool
-    common.require(l2, "l2", I32, (nb, w))
-    common.require(rows, "rows", I32, (m, w))
+    common.require(l2, "l2", I32, lead + (nb, w))
+    common.require(rows, "rows", I32, lead + (m, w))
     if packed:
-        common.require(dirty, "dirty", I32, (m, bitmask.n_lanes(w)))
+        common.require(dirty, "dirty", I32, lead + (m, bitmask.n_lanes(w)))
     else:
-        common.require(dirty, "dirty", torch.bool, (m, w))
-    common.require(indices, "indices", I32, (m,))
+        common.require(dirty, "dirty", torch.bool, lead + (m, w))
+    common.require(indices, "indices", I32, lead + (m,))
     if w > MAX_WRITEBACK_WORDS:
         raise ValueError(f"drain_writeback kernel takes W <= "
                          f"{MAX_WRITEBACK_WORDS} words a block, got {w}")
     out = torch.empty_like(l2)
     lanes = (dirty.shape[-1],) if packed else ()
+    reps = lead[:1]             # the replica entry takes R last
+    entry = "drain_writeback" if packed else "drain_writeback_bool"
     common.launch("drain_writeback", [ctypes.c_void_p] * 5
-                  + [ctypes.c_int] * (3 + len(lanes)), l2.device,
+                  + [ctypes.c_int] * (3 + len(lanes) + len(reps)),
+                  l2.device,
                   *(common.ptr(t) for t in (l2, rows, dirty, indices, out)),
-                  nb, w, m, *lanes,
-                  entry="drain_writeback" if packed
-                  else "drain_writeback_bool")
+                  nb, w, m, *lanes, *reps,
+                  entry=entry + "_many" if lead else entry)
     return out
+
+
+def _replica_op(name: str):
+    return common.replica_op(
+        name, "(Tensor l2, Tensor rows, Tensor dirty, Tensor indices) -> "
+        "Tensor", _impls[name], _rules[name])
 
 
 def drain_writeback_bool(l2: torch.Tensor, rows: torch.Tensor,
@@ -163,6 +193,8 @@ def drain_writeback_bool(l2: torch.Tensor, rows: torch.Tensor,
     byte-mask instance of `csrc/drain_writeback.cu`."""
     if dirty.dtype != torch.bool:
         raise ValueError(f"dirty: want a bool mask, got {dirty.dtype}")
+    if common.batched(l2, rows, dirty, indices):
+        return _replica_op("drain_writeback_bool")(l2, rows, dirty, indices)
     if common.on_cuda(l2, rows, dirty, indices):
         out = _launch(l2, rows, dirty, indices)
         drain_writeback_bool.launches += 1
@@ -175,9 +207,12 @@ def drain_writeback(l2: torch.Tensor, rows: torch.Tensor,
                     ) -> torch.Tensor:
     """Merged [nb, W] bank, a fresh tensor (see `drain_writeback_ref`).
     A bool mask goes to `drain_writeback_bool`; packed int32 lanes launch
-    the packed instance here."""
+    the packed instance here.  Under vmap, replica-batched inputs take
+    one `drain_writeback_many` call for every replica."""
     if dirty.dtype == torch.bool:
         return drain_writeback_bool(l2, rows, dirty, indices)
+    if common.batched(l2, rows, dirty, indices):
+        return _replica_op("drain_writeback")(l2, rows, dirty, indices)
     if common.on_cuda(l2, rows, dirty, indices):
         out = _launch(l2, rows, dirty, indices)
         drain_writeback.launches += 1
@@ -187,3 +222,53 @@ def drain_writeback(l2: torch.Tensor, rows: torch.Tensor,
 
 drain_writeback.launches = 0
 drain_writeback_bool.launches = 0
+
+
+def drain_writeback_many(l2: torch.Tensor, rows: torch.Tensor,
+                         dirty: torch.Tensor, indices: torch.Tensor
+                         ) -> torch.Tensor:
+    """The replica instance: l2 [R, nb, W], rows [R, m, W], dirty
+    [R, m, L] packed lanes, indices [R, m] -> a fresh [R, nb, W] bank;
+    CUDA tensors launch one grid over (replica, destination tile)."""
+    if dirty.dtype == torch.bool:
+        return drain_writeback_bool_many(l2, rows, dirty, indices)
+    if common.on_cuda(l2, rows, dirty, indices):
+        out = _launch(l2, rows, dirty, indices)
+        drain_writeback_many.launches += 1
+        return out
+    return drain_writeback_ref(l2, rows, dirty, indices)
+
+
+def drain_writeback_bool_many(l2: torch.Tensor, rows: torch.Tensor,
+                              dirty: torch.Tensor, indices: torch.Tensor
+                              ) -> torch.Tensor:
+    """`drain_writeback_many` under a bool [R, m, W] mask."""
+    if dirty.dtype != torch.bool:
+        raise ValueError(f"dirty: want a bool mask, got {dirty.dtype}")
+    if common.on_cuda(l2, rows, dirty, indices):
+        out = _launch(l2, rows, dirty, indices)
+        drain_writeback_bool_many.launches += 1
+        return out
+    return drain_writeback_ref(l2, rows, dirty, indices)
+
+
+drain_writeback_many.launches = 0
+drain_writeback_bool_many.launches = 0
+
+
+def _front(info, in_dims, args) -> list:
+    return [common.to_front(info.batch_size, x, d)
+            for x, d in zip(args, in_dims)]
+
+
+def _rule(info, in_dims, *args):
+    return drain_writeback_many(*_front(info, in_dims, args)), 0
+
+
+def _bool_rule(info, in_dims, *args):
+    return drain_writeback_bool_many(*_front(info, in_dims, args)), 0
+
+
+_impls = {"drain_writeback": drain_writeback,
+          "drain_writeback_bool": drain_writeback_bool}
+_rules = {"drain_writeback": _rule, "drain_writeback_bool": _bool_rule}

@@ -15,7 +15,8 @@ gives the simulator's kernels at the kv_directory shapes of n agents
 their bytes and operations: `drain_writeback` under a packed mask and
 under a bool mask (its REPRO_NO_PACK=1 instance, where the checkout has
 it), `plane_commit`, and `trip_plan` without and with the remote
-co-schedule.  `serve_calls` gives the serving path's `rmsnorm` and
+co-schedule, and each one's replica instance (`*_many`) at R = 2 and
+64.  `serve_calls` gives the serving path's `rmsnorm` and
 `topk_router` at granite-moe-1b-a400m's decode and prefill shapes.
 
 As a script it times those kernels, the simulator's at n=64 and n=256
@@ -43,6 +44,10 @@ import importlib
 import json
 import os
 import sys
+
+
+# the replica instances' replica counts in `sim_calls`
+REPS = (2, 64)
 
 
 def device_ms(fn, iters=50) -> float:
@@ -163,53 +168,77 @@ def trace_misses(calls, rounds: int) -> dict:
     return {str(k): v for k, v in out.items()}
 
 
-def sim_calls(C, SF, FT, n: int, device) -> list:
+def sim_calls(C, SF, FT, n: int, device, reps=REPS) -> list:
     """The simulator's kernels at the kv_directory shapes of n agents:
     [{name, shape, fn, plain, bytes, ops}], `fn` the kernel wrapper and
     `plain` its plain version on the same inputs (C, SF, FT: the
-    `cases`, `selective_flush.ops` and `fused_turn.ops` modules)."""
+    `cases`, `selective_flush.ops` and `fused_turn.ops` modules); then,
+    where the checkout has them, the replica instances (`*_many`) at
+    each replica count in `reps`, R copies of those inputs moving R
+    times the bytes."""
+    import numpy as np
     nb, w, m = 2 * n, 16, 16 * n        # b_drain: n caches x fifo_cap
 
     def on(xs):
         return [C.to_torch(x).to(device) for x in xs]
 
-    out = []
-    dw = on(C.dw_inputs(1, nb, w, m))
-    out.append(dict(
-        name="drain_writeback", shape=f"nb={nb} W={w} m={m}",
-        fn=lambda: SF.drain_writeback(*dw),
-        plain=lambda: SF.drain_writeback_ref(*dw),
-        # each bank word is read once (from l2 or from its owning row)
-        # and written once, plus the packed mask and the index list
-        bytes=4 * (2 * nb * w + m * dw[2].shape[1] + m),
-        ops=m * w + nb * w))
-    if hasattr(SF, "drain_writeback_bool"):
-        dwb = on(C.dw_inputs(1, nb, w, m, bool_mask=True))
+    def solo(dw, dwb, pc, tp, tag=""):
+        out = []
+        # each bank word is read once (from l2 or from its owning row) and
+        # written once, plus the packed mask and the index list
         out.append(dict(
-            name="drain_writeback_bool", shape=f"nb={nb} W={w} m={m} bool",
-            fn=lambda: SF.drain_writeback_bool(*dwb),
-            plain=lambda: SF.drain_writeback_ref(*dwb),
-            # as above, with the mask as m*W bytes
-            bytes=4 * (2 * nb * w + m) + m * w, ops=m * w + nb * w))
-    pc = on(C.pc_inputs(1, n, nb, w))
-    words = pc[0].numel()
-    out.append(dict(
-        name="plane_commit", shape=f"n={n} nb={nb} L={pc[0].shape[2]}",
-        fn=lambda: FT.plane_commit(*pc),
-        plain=lambda: FT.plane_commit_ref(*pc),
-        bytes=4 * 4 * words + n * (4 + 4 + 1 + 1) + 2 * n, ops=2 * words))
-    tp = on(C.plan_inputs(1, n))
-    out.append(dict(
-        name="trip_plan", shape=f"n={n} remote_cap=False",
-        fn=lambda: FT.trip_plan(*tp, None, remote_cap=False),
-        plain=lambda: FT.trip_plan_ref(*tp[:4], None, None),
-        bytes=n * (4 + 1 + 1 + 4) + 2 * n + 4, ops=16 * n))
-    # with the remote co-schedule: raddr read, the n x n address dedup
-    out.append(dict(
-        name="trip_plan", shape=f"n={n} remote_cap=True",
-        fn=lambda: FT.trip_plan(*tp, None, remote_cap=True),
-        plain=lambda: FT.trip_plan_ref(*tp, None),
-        bytes=n * (4 + 1 + 1 + 4 + 4) + 2 * n + 4, ops=16 * n + 4 * n * n))
+            name=f"drain_writeback{tag}", shape=f"nb={nb} W={w} m={m}",
+            fn=lambda: getattr(SF, f"drain_writeback{tag}")(*dw),
+            plain=lambda: SF.drain_writeback_ref(*dw),
+            bytes=4 * (2 * nb * w + m * dw[2].shape[-1] + m),
+            ops=m * w + nb * w))
+        if dwb is not None:
+            out.append(dict(
+                name=f"drain_writeback_bool{tag}",
+                shape=f"nb={nb} W={w} m={m} bool",
+                fn=lambda: getattr(SF, f"drain_writeback_bool{tag}")(*dwb),
+                plain=lambda: SF.drain_writeback_ref(*dwb),
+                # as above, with the mask as m*W bytes
+                bytes=4 * (2 * nb * w + m) + m * w, ops=m * w + nb * w))
+        words = n * nb * pc[0].shape[-1]
+        out.append(dict(
+            name=f"plane_commit{tag}",
+            shape=f"n={n} nb={nb} L={pc[0].shape[-1]}",
+            fn=lambda: getattr(FT, f"plane_commit{tag}")(*pc),
+            plain=lambda: FT.plane_commit_ref(*pc),
+            bytes=4 * 4 * words + n * (4 + 4 + 1 + 1) + 2 * n,
+            ops=2 * words))
+        plan = getattr(FT, f"trip_plan{tag}")
+        out.append(dict(
+            name=f"trip_plan{tag}", shape=f"n={n} remote_cap=False",
+            fn=lambda: plan(*tp, None, remote_cap=False),
+            plain=lambda: FT.trip_plan_ref(*tp[:4], None, None),
+            bytes=n * (4 + 1 + 1 + 4) + 2 * n + 4, ops=16 * n))
+        # with the remote co-schedule: raddr read, the n x n address dedup
+        out.append(dict(
+            name=f"trip_plan{tag}", shape=f"n={n} remote_cap=True",
+            fn=lambda: plan(*tp, None, remote_cap=True),
+            plain=lambda: FT.trip_plan_ref(*tp, None),
+            bytes=n * (4 + 1 + 1 + 4 + 4) + 2 * n + 4,
+            ops=16 * n + 4 * n * n))
+        return out
+
+    bool_ok = hasattr(SF, "drain_writeback_bool")
+    ins = (C.dw_inputs(1, nb, w, m),
+           C.dw_inputs(1, nb, w, m, bool_mask=True) if bool_ok else None,
+           C.pc_inputs(1, n, nb, w), C.plan_inputs(1, n))
+    out = solo(*(on(x) if x is not None else None for x in ins))
+    if not hasattr(SF, "drain_writeback_many"):
+        return out
+    for r in reps:
+        # every replica holds the solo inputs, so a replica row and its
+        # solo row time the same data
+        calls = solo(*(on([np.stack([a] * r) for a in x]) for x in ins),
+                     "_many")
+        for c in calls:
+            c.update(shape=f"{c['shape']} R={r}", reps=r,
+                     bytes=r * c["bytes"], ops=r * c["ops"])
+        out += calls
     return out
 
 
@@ -254,11 +283,16 @@ def serve_calls(C, RN, TR, device) -> list:
 
 SIM_NS = (64, 256)
 # the kernels whose call is one device operation, by the name of their
-# __global__ function in torch.profiler's records
+# __global__ function in torch.profiler's records (the replica instances
+# launch the solo kernels' __global__ functions)
 ONE_OP = {"drain_writeback": "drain_writeback_kernel",
           "drain_writeback_bool": "drain_writeback_kernel",
           "plane_commit": "plane_commit_kernel",
           "trip_plan": "trip_plan_kernel",
+          "drain_writeback_many": "drain_writeback_kernel",
+          "drain_writeback_bool_many": "drain_writeback_kernel",
+          "plane_commit_many": "plane_commit_kernel",
+          "trip_plan_many": "trip_plan_kernel",
           "rmsnorm": "rmsnorm_rows_kernel",
           "topk_router": "topk_router_kernel"}
 SERVE_KERNELS = ("rmsnorm", "topk_router")
@@ -417,6 +451,8 @@ def pair_wins(recs: list) -> list:
         pairs = [(a, b) if a["tree"] == base else (b, a)
                  for a, b in zip(rs[::2], rs[1::2]) if a["tree"] != b["tree"]]
         mine = [r for r in rs if r["tree"] == base]
+        if not mine:                      # a kernel the base lacks
+            continue
         iqr = {k: (lambda q: q[1] - q[0])(_quartiles([r[k] for r in mine]))
                for k in ("ms", "eager_ms")}
         out.append({"name": name, "shape": shape, "base": base,

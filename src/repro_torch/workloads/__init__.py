@@ -2,8 +2,9 @@
 
 Each registered module implements
 `build(scenario, n_agents, seed=0, *, proto=None, device=None, **kw)
--> Bench`; every module but `worksteal` (which enqueues on the host)
-also `init_state(wl, seed, device)`.  The port registers all six of the
+-> Bench` and `VMAPPABLE`; every module but `worksteal` (which enqueues
+on the host, `VMAPPABLE = False`) also `init_state(wl, seed, device)`,
+which `harness.init_many` stacks over seeds for the replica engines.  The port registers all six of the
 reference's workloads.
 """
 from __future__ import annotations

@@ -51,7 +51,20 @@ event horizon), so the two stay bitwise equal under churn; a CRASH is
 reclaimed by the protocol's `recover_b` once its lease expires.  With an
 empty schedule each is bitwise its plain engine.
 
-Not ported yet: the vmapped `*_many` replica engines.
+The replica engines `run_batched_many` and `run_fused_many` (`runner_many`)
+run R replicas of one cell at once over a stacked state, every leaf with
+a leading [R] axis (`stack`, `init_many`), as the reference's
+`jax.vmap` of `run_batched`/`run_fused` does: the loop runs on the host
+while any replica is live, and the turn functions run under
+`torch.func.vmap`, so every kernel call is one replica-axis launch and
+every branch inside a turn a per-replica select (`protocol.cond`).
+Each trip reads the decision flags of all replicas from the device once
+and runs each turn form (the masked local turn, the co-scheduled remote
+batch, the serial remote turn) only if some replica takes it; each
+replica keeps the result of its own form, and a replica that is no
+longer live keeps its state, as JAX's batched `while_loop` freezes it.
+Each lane ends bitwise equal to the solo run of its seed, `rounds`
+included.
 """
 from __future__ import annotations
 
@@ -282,6 +295,143 @@ def run_fused(wl: Workload, state, *ops):
 
 
 # --------------------------------------------------------------------------
+# The replica axis: R replicas of one cell in one run (the reference's
+# `jax.vmap` of an engine over a stacked state)
+# --------------------------------------------------------------------------
+
+def stack(states) -> Any:
+    """One state whose every leaf stacks the given states' leaves on a
+    new leading [R] axis."""
+    return P.tree_map(lambda *x: torch.stack(x), *states)
+
+
+def lane(states, k: int) -> Any:
+    """Replica k of a stacked state."""
+    return P.tree_map(lambda x: x[k], states)
+
+
+def init_many(init_state: Callable, wl: Workload, seeds, device=None):
+    """R replicas of a workload whose `init_state` draws on the device
+    (the modules with `VMAPPABLE`), stacked over `seeds`: the port's
+    twin of `jax.vmap(lambda s: mod.init_state(wl, s))(seeds)`."""
+    return stack([init_state(wl, int(seed), device) for seed in seeds])
+
+
+def _rows(pred, yes, no):
+    """Per-replica select of two stacked states by pred [R]."""
+    return P.tree_map(
+        lambda a, b: torch.where(
+            pred.reshape(pred.shape + (1,) * (a.ndim - 1)), a, b), yes, no)
+
+
+def _run_many(wl: Workload, states, ops, plan_fn, engine):
+    """The replica loop.  A trip computes every replica's readiness and
+    plan under vmap (`plan_fn`: the `trip_plan` contract), then reads
+    from the device once whether any replica is live and which of the
+    three turn forms some live replica takes (a nonempty local mask;
+    else, with the remote-batching capability, a nonempty remote batch;
+    else the serial remote turn of the plan's wg), with the largest
+    remote batch.  A form runs, under vmap over every replica, only if
+    some replica takes it; each replica keeps its own form's result.
+    A remote form's lane scans (`protocol.lane_bound`) take at most the
+    form's largest mask; a replica whose scans needed more raises at the
+    next read.  Each pass adds one to `engine.passes`: a run of t trips makes t + 1
+    passes (the last finds no replica live)."""
+    vmap = torch.func.vmap
+    cap = wl.remote_cap
+
+    def decide(s):
+        can_l = wl.can_local(wl, s, *ops)
+        live = torch.as_tensor(wl.live(wl, s, *ops), device=can_l.device)
+        if not wl.has_remote:
+            # nothing ever conflicts: every ready agent acts each trip
+            return live, can_l, torch.zeros_like(can_l), \
+                torch.zeros((), dtype=torch.int32, device=can_l.device)
+        can_r = wl.can_remote(wl, s, *ops)
+        plan = plan_fn(s.store.counters.cycles, can_l, can_r,
+                       wl.remote_bound(wl, s, *ops),
+                       wl.remote_addr(wl, s, *ops) if cap else None, None,
+                       remote_cap=cap)
+        return live, plan.lmask, plan.rmask, plan.wg
+
+    def bounded(turn):
+        # a remote form's ops act for its masked agents only: its lane
+        # scans take at most `lanes` lanes (the largest batch, one when
+        # serial), and each replica says whether its scans needed more
+        def run(s, arg, lanes):
+            with P.lane_bound(lanes) as over:
+                out = turn(wl, s, arg, *ops)
+            return out, torch.stack(over).any() if over \
+                else torch.zeros((), dtype=torch.bool, device=arg.device)
+        return vmap(run, in_dims=(0, 0, None))
+
+    local = vmap(lambda s, m: wl.local_turn(wl, s, m, *ops))
+    forms = [lambda s, m, lanes: (local(s, m), None)]
+    if wl.has_remote:
+        forms += [bounded(wl.remote_turn_b) if cap else None,
+                  bounded(wl.remote_turn)]
+    decide = vmap(decide)
+    s = states
+    # whether a replica of the last trip took a remote form that needed
+    # more lanes than its bound: read with this trip's flags
+    over = torch.zeros((), dtype=torch.bool,
+                       device=s.store.counters.cycles.device)
+    while True:
+        engine.passes += 1
+        live, lmask, rmask, wg = decide(s)
+        if wl.has_remote:
+            go_l = live & lmask.any(dim=1)
+            go_b = live & ~go_l & rmask.any(dim=1) if cap \
+                else torch.zeros_like(live)
+            go_r = live & ~go_l & ~go_b
+        else:
+            go_l, go_b, go_r = live, torch.zeros_like(live), \
+                torch.zeros_like(live)
+        # the one host read: which forms run, the largest remote batch,
+        # and whether the last trip's lane scans left lanes out
+        takes = torch.cat([
+            torch.stack([live, go_l, go_b, go_r]).any(dim=1).to(torch.int64),
+            torch.where(go_b, rmask.sum(dim=1), 0).amax()[None],
+            over[None].to(torch.int64)]).tolist()
+        if takes[5]:
+            raise RuntimeError(
+                "a remote turn scanned more lanes than its form's mask "
+                "holds: protocol.lane_bound left some out")
+        if not takes[0]:
+            return s
+        out = s
+        over = torch.zeros_like(over)
+        for take, go, form, arg, lanes in zip(
+                takes[1:4], (go_l, go_b, go_r), forms, (lmask, rmask, wg),
+                (None, takes[4], 1)):
+            if take:
+                res, bad = form(s, arg, lanes)
+                out = _rows(go, res, out)
+                if bad is not None:
+                    over = over | (go & bad).any()
+        s = out
+
+
+def run_batched_many(wl: Workload, states, *ops):
+    """`run_batched` over a leading replica axis of `states` (the
+    reference's `jax.vmap` of it): every lane is its seed's solo run.
+    The trip's decision is the plain `trip_plan_ref` under vmap."""
+    return _run_many(wl, states, ops,
+                     lambda *a, remote_cap: fused_turn.trip_plan_ref(*a),
+                     run_batched_many)
+
+
+def run_fused_many(wl: Workload, states, *ops):
+    """`run_fused` over a leading replica axis of `states`: one
+    `trip_plan` launch a trip decides for every replica."""
+    return _run_many(wl, states, ops, fused_turn.trip_plan, run_fused_many)
+
+
+run_batched_many.passes = 0
+run_fused_many.passes = 0
+
+
+# --------------------------------------------------------------------------
 # Elastic alive-set scheduling (DESIGN.md §10)
 #
 # LEAVE retires an agent (the workload's `retire` hook forgives its
@@ -473,9 +623,20 @@ register_engine("serial_elastic", run_serial_elastic)
 register_engine("batched_elastic", run_batched_elastic)
 
 
+# the replica twins of the engines the sweep packs replicas through
+ENGINES_MANY = P.Registry("vmapped engine")
+ENGINES_MANY["batched"] = run_batched_many
+ENGINES_MANY["fused"] = run_fused_many
+
+
 def runner(engine: str):
     """Registered scheduler by name; unknown names raise with the list."""
     return ENGINES[engine]
+
+
+def runner_many(engine: str):
+    """Replica twin of an engine by name (the sweep's replica packing)."""
+    return ENGINES_MANY[engine]
 
 
 def drain_all(cfg: P.ProtoConfig, st: P.Store) -> P.Store:

@@ -27,6 +27,7 @@ from repro_torch.kernels import common
 from repro_torch.workloads import harness
 
 I32 = torch.int32
+VMAPPABLE = True    # init_state draws on the device: replicas stack
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,8 +160,13 @@ def _local_turn(wl, s: KVState, mask) -> KVState:
 
 
 def _remote_turn(wl, s: KVState, wg) -> KVState:
-    if not bool(_can_remote(wl, s)[wg]):   # the scheduler's own predicate
-        return s._replace(rounds=s.rounds + 1)
+    # the scheduler's own predicate: a lane that cannot go remote idles
+    return P.cond(_can_remote(wl, s)[wg], _lookup,
+                  lambda wl, s, wg: s._replace(rounds=s.rounds + 1),
+                  wl, s, wg)
+
+
+def _lookup(wl, s: KVState, wg) -> KVState:
     cfg = wl.cfg
     pc = cfg.proto_cfg()
     nb = cfg.n_buckets

@@ -49,6 +49,7 @@ from repro_torch.traffic import trace as TR
 from repro_torch.workloads import harness
 
 I32 = torch.int32
+VMAPPABLE = True    # init_state draws on the device: replicas stack
 
 
 @dataclasses.dataclass(frozen=True)
@@ -287,6 +288,22 @@ def with_trace(bench: harness.Bench, tr: TR.RequestTrace) -> harness.Bench:
     tr = TR.RequestTrace(*(c.to(dev) for c in tr))
     streams = D.from_trace(tr, cfg.n_agents, cfg.traffic.requests_per_agent)
     return bench._replace(state=bench.state._replace(streams=streams))
+
+
+def with_traces(bench: harness.Bench, traces, states=None) -> harness.Bench:
+    """`bench` with a stacked state of R = len(traces) replicas for the
+    replica engines: replica r's streams regrouped from traces[r] (a
+    trace the reference generated, `traffic.trace.load`), the rest of its
+    state `bench.state`, or lane r of `states` (a stacked state, e.g.
+    `harness.init_many` over seeds) where given; a None trace keeps that
+    lane's own streams.  The replay of a JAX `run_*_many` run."""
+    if states is None:
+        states = harness.stack([bench.state] * len(traces))
+    lanes = [harness.lane(states, r) for r in range(len(traces))]
+    lanes = [s if tr is None else with_trace(bench._replace(state=s),
+                                             tr).state
+             for s, tr in zip(lanes, traces)]
+    return bench._replace(state=harness.stack(lanes))
 
 
 def build(scenario: str, n_agents: int, seed: int = 0, *,

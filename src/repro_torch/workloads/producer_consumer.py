@@ -34,6 +34,7 @@ from repro_torch.kernels import common
 from repro_torch.workloads import harness
 
 I32 = torch.int32
+VMAPPABLE = True    # init_state draws on the device: replicas stack
 
 
 @dataclasses.dataclass(frozen=True)

@@ -11,6 +11,7 @@ from __future__ import annotations
 from repro_torch.core import protocol as P
 from repro_torch.workloads import harness, producer_consumer as _pc
 
+VMAPPABLE = True
 Config = _pc.Config
 PCState = _pc.PCState
 init_state = _pc.init_state

@@ -26,6 +26,7 @@ from repro_torch.kernels import common
 from repro_torch.workloads import harness
 
 I32 = torch.int32
+VMAPPABLE = True    # init_state draws on the device: replicas stack
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,8 +156,13 @@ def _local_turn(wl, s: RLState, mask) -> RLState:
 
 
 def _remote_turn(wl, s: RLState, wg) -> RLState:
-    if not bool(_can_remote(wl, s)[wg]):   # the scheduler's own predicate
-        return s._replace(rounds=s.rounds + 1)
+    # the scheduler's own predicate: a lane that cannot go remote idles
+    return P.cond(_can_remote(wl, s)[wg], _read,
+                  lambda wl, s, wg: s._replace(rounds=s.rounds + 1),
+                  wl, s, wg)
+
+
+def _read(wl, s: RLState, wg) -> RLState:
     cfg = wl.cfg
     pc = cfg.proto_cfg()
     st = s.store

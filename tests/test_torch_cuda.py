@@ -231,6 +231,82 @@ def test_simulator_kernels_are_bitwise_repeatable(cuda):
             np.testing.assert_array_equal(g.cpu().numpy(), x)
 
 
+def _stacked(gen, case, k, **kw):
+    """Case k of a replica case list as CPU tensors (`cases.stacked`)."""
+    _, gkw, reps, idle = case[:4]
+    return [C.to_torch(x) for x in C.stacked(gen, reps, k, idle, **gkw,
+                                             **kw)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "bool"])
+@pytest.mark.parametrize("k", range(len(C.DRAIN_MANY_CASES)),
+                         ids=_ids(C.DRAIN_MANY_CASES))
+def test_drain_writeback_many_kernel_on_card(cuda, k, packed):
+    """The replica instances, packed and bool: one launch merges every
+    replica's bank, bitwise the plain version's."""
+    args = _stacked(C.dw_inputs, C.DRAIN_MANY_CASES[k], k,
+                    bool_mask=not packed)
+    fn = SF.drain_writeback_many if packed else SF.drain_writeback_bool_many
+    before = fn.launches
+    got = SF.drain_writeback_many(*(a.to(cuda) for a in args))
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  SF.drain_writeback_ref(*args).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(len(C.COMMIT_MANY_CASES)),
+                         ids=_ids(C.COMMIT_MANY_CASES))
+def test_plane_commit_many_kernel_on_card(cuda, k):
+    args = _stacked(C.pc_inputs, C.COMMIT_MANY_CASES[k], k)
+    before = FT.plane_commit_many.launches
+    got = FT.plane_commit_many(*(a.to(cuda) for a in args))
+    torch.cuda.synchronize()
+    assert FT.plane_commit_many.launches == before + 1
+    for g, x in zip(got, FT.plane_commit_ref(*args)):
+        np.testing.assert_array_equal(g.cpu().numpy(), x.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(len(C.PLAN_MANY_CASES)),
+                         ids=_ids(C.PLAN_MANY_CASES))
+def test_trip_plan_many_kernel_on_card(cuda, k):
+    case = C.PLAN_MANY_CASES[k]
+    remote_cap, fenced = case[4:]
+    args = _stacked(C.plan_inputs, case, k)
+    hor = C.horizons(args[0].numpy(), fenced)
+    hor = None if hor is None else torch.from_numpy(hor)
+    before = FT.trip_plan_many.launches
+    got = FT.trip_plan_many(*(a.to(cuda) for a in args),
+                            None if hor is None else hor.to(cuda),
+                            remote_cap=remote_cap)
+    torch.cuda.synchronize()
+    assert FT.trip_plan_many.launches == before + 1
+    for g, x in zip(got, FT.trip_plan_many(*args, hor,
+                                           remote_cap=remote_cap)):
+        np.testing.assert_array_equal(g.cpu().numpy(), x.numpy())
+
+
+REPLICA_OPS = [(name, r) for name in sorted(timing.ONE_OP)
+               if name.endswith("_many") for r in timing.REPS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,reps", REPLICA_OPS,
+                         ids=[f"{name}-R={r}" for name, r in REPLICA_OPS])
+def test_replica_call_is_one_device_operation(cuda, name, reps):
+    """A replica instance's call at the n=64 shapes is one kernel record
+    at every R."""
+    call = next(c for c in timing.sim_calls(C, SF, FT, 64, cuda)
+                if c["name"] == name and c.get("reps") == reps)
+    call["fn"]()                          # build and load outside the trace
+    ops = timing.device_ops(call["fn"])
+    assert sum(ops.values()) == 1, ops
+    assert timing.ONE_OP[name] in next(iter(ops)), ops
+
+
 @pytest.mark.cuda
 def test_drain_writeback_refuses_rows_wider_than_its_tile(cuda):
     w = SF.MAX_WRITEBACK_WORDS + 1
@@ -521,3 +597,92 @@ def test_dispatch_is_by_device():
     meta = torch.zeros(1, device="meta")
     with pytest.raises(ValueError, match="span devices"):
         common.on_cuda(args[0], meta)
+
+
+def _in_child(body: str, *args) -> None:
+    """This file's function `body(cuda, *args)` in a child process, whose
+    failure fails the test.  The replica path runs there: after a replica
+    run, torch.profiler traces in the same process have come back with no
+    CUDA record (PERF.md §7), and this process traces."""
+    import os
+    import subprocess
+    import sys
+    here = pathlib.Path(__file__).resolve().parent
+    path = [str(GOLDEN.parents[1]), str(here),
+            os.environ.get("PYTHONPATH", "")]
+    out = subprocess.run(
+        [sys.executable, "-c",
+         f"import torch, test_torch_cuda as t; "
+         f"t.{body}(torch.device('cuda'), *{args!r})"],
+        env=dict(os.environ, PYTHONPATH=os.pathsep.join(path)),
+        capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout[-4000:] + out.stderr[-4000:]
+
+
+@pytest.mark.cuda
+def test_vmap_launches_each_replica_instance_once(cuda):
+    """Under torch.func.vmap each kernel wrapper on replica-batched CUDA
+    tensors makes one replica-instance launch for all R, and each
+    replica's result is its solo call's."""
+    _in_child("_vmap_launches_each_replica_instance_once")
+
+
+def _vmap_launches_each_replica_instance_once(cuda):
+    vmap = torch.func.vmap
+    dw = [a.to(cuda) for a in _stacked(C.dw_inputs, C.DRAIN_MANY_CASES[0],
+                                       0)]
+    pc = [a.to(cuda) for a in _stacked(C.pc_inputs, C.COMMIT_MANY_CASES[1],
+                                       1)]
+    tp = [a.to(cuda) for a in _stacked(C.plan_inputs, C.PLAN_MANY_CASES[7],
+                                       7)]
+    counts = [f.launches for f in (SF.drain_writeback_many,
+                                   FT.plane_commit_many,
+                                   FT.trip_plan_many)]
+    got_dw = vmap(SF.drain_writeback)(*dw)
+    got_pc = vmap(lambda *a: tuple(FT.plane_commit(*a)))(*pc)
+    got_tp = vmap(lambda *a: tuple(FT.trip_plan(*a, None,
+                                                remote_cap=True)))(*tp)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (SF.drain_writeback_many,
+                                 FT.plane_commit_many,
+                                 FT.trip_plan_many)] \
+        == [c + 1 for c in counts]
+    for r in range(dw[0].shape[0]):
+        assert torch.equal(got_dw[r], SF.drain_writeback(
+            *(a[r] for a in dw)))
+    for r in range(pc[0].shape[0]):
+        for g, x in zip(got_pc, FT.plane_commit(*(a[r] for a in pc))):
+            assert torch.equal(g[r], x)
+    for r in range(tp[0].shape[0]):
+        for g, x in zip(got_tp, FT.trip_plan(*(a[r] for a in tp), None,
+                                             remote_cap=True)):
+            assert torch.equal(g[r], x)
+
+
+MANY_GOLDEN = json.loads((GOLDEN / "many.json").read_text())["cells"]
+MANY_ON_CARD = [k for k, c in enumerate(MANY_GOLDEN)
+                if c["workload"] == "kv_directory"
+                and c["scenario"] == "srsp"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", MANY_ON_CARD,
+                         ids=[f"{MANY_GOLDEN[k]['workload']}-"
+                              f"{MANY_GOLDEN[k]['engine']}"
+                              for k in MANY_ON_CARD])
+def test_many_golden_cell_on_card(cuda, k):
+    """kv_directory n=64 over seeds 4 and 5 in one replica run on the
+    card, every lane held to `golden/many.json` with `==`; the fused
+    engine launches `trip_plan_many` once a trip for both replicas."""
+    _in_child("_many_golden_cell", k)
+
+
+def _many_golden_cell(cuda, k):
+    cell = MANY_GOLDEN[k]
+    before = FT.trip_plan_many.launches
+    row = sweep.run_vmapped_cell(cell["workload"], cell["scenario"],
+                                 cell["n_agents"], cell["seeds"],
+                                 cell["engine"], device=cuda, warmup=False)
+    assert row["lanes"] == cell["lanes"]
+    assert (FT.trip_plan_many.launches > before) \
+        == (cell["engine"] == "fused")

@@ -14,6 +14,11 @@ worksteal and kv_serving.  Beside them:
   the port replays: its own float samplers agree with XLA's to a few
   ulps, not bit for bit.  It also holds the churn cells' traces, one of
   them drawn under `jax.threefry_partitionable(False)` (`_legacy`);
+* `many.json` holds the replica engines' cells (`MANY_CELLS`): the
+  reference's `run_fused_many`/`run_batched_many` at n=64 over seeds 4
+  and 5 (lane 0 is the committed sweep's lane), each lane's counters,
+  `events` and check verdict; its kv_serving cell replays the traces of
+  `kv_serving_traces.npz`;
 * `churn.json` holds the elastic engines' cells (`CHURN_CELLS`): crash
   red/green pairs (a crash fault with the recovery drain on, and with
   `faults.lease_never_expires`) at n=64 and at the n=4 pins of
@@ -28,6 +33,7 @@ Checks:
   rows (seed 4 at n=16 and n=64, kv_directory's n=256 `fuse_ab` cell,
   worksteal's n=64 seed 2 and smoke n=16 seed 1 rows); the golden traces
   are the reference's draws for their provenance;
+* tier-1: `many.json`'s seed-4 lanes are the solo golden cells;
 * slow: regenerating every file from the JAX package gives the
   committed cells exactly.
 
@@ -35,7 +41,7 @@ Regenerate the files with
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_golden.py --write [WORKLOAD ...]
 
-(`churn` among the names writes `churn.json`).
+(`churn` among the names writes `churn.json`, `many` writes `many.json`).
 
 A file whose cells come out unchanged is left as it is, provenance
 included.
@@ -172,6 +178,78 @@ CHURN_CELLS = (
        for e in ("serial_elastic", "batched_elastic")])
 
 
+# the replica engines' cells: (workload, scenario, engine, fault of
+# `faults` or None), each at n=64 over MANY_SEEDS, in one `run_*_many`
+# call.  srsp fused for the five vmappable workloads (kv_serving at the
+# default traffic), kv_directory's other protocols and its batched
+# engine (the `fuse_ab` pair), and producer_consumer_mc's batched engine
+# with and without `faults.serialize_remote` (the `remote_batch_ab` pair)
+MANY_N, MANY_SEEDS = 64, (4, 5)
+MANY_CELLS = (
+    [(w, "srsp", "fused", None) for w in (
+        "kv_directory", "reader_lock", "producer_consumer",
+        "producer_consumer_mc", "kv_serving")]
+    + [("kv_directory", "srsp", "batched", None)]
+    + [("kv_directory", s, "fused", None) for s in ("rsp", "baseline")]
+    + [("producer_consumer_mc", "srsp", "batched", f)
+       for f in (None, "serialize_remote")])
+
+
+def many_trace_cells() -> list:
+    """The kv_serving cells whose traces the replica cells replay."""
+    return [("srsp", MANY_N, seed, "fused", "default") for seed in MANY_SEEDS
+            if ("srsp", MANY_N, seed, "fused", "default") not in KVS_CELLS]
+
+
+def many_from_jax(cells=None) -> dict:
+    """Run every replica cell (or `cells`) through the JAX reference's
+    `run_*_many` on freshly built states (the reference donates them)."""
+    import jax
+    import jax.numpy as jnp
+    from repro import workloads
+    from repro.core import protocol as P
+    from repro.workloads import faults, harness
+
+    out = []
+    for workload, scenario, engine, fault in cells or MANY_CELLS:
+        mod = workloads.get(workload)
+        proto = None if fault is None \
+            else getattr(faults, fault)(P.get_protocol(scenario))
+        bench = mod.build(scenario, MANY_N, seed=MANY_SEEDS[0], proto=proto)
+        states = jax.vmap(lambda s: mod.init_state(bench.wl, s))(
+            jnp.asarray(MANY_SEEDS, jnp.int32))
+        extra = {}
+        if workload == "kv_serving":
+            # each replica's streams are its seed's trace, drawn alone
+            for k, seed in enumerate(MANY_SEEDS):
+                solo = mod.init_state(bench.wl, seed).streams
+                for a, b in zip(jax.tree.leaves(solo),
+                                jax.tree.leaves(states.streams)):
+                    np.testing.assert_array_equal(np.asarray(a),
+                                                  np.asarray(b)[k])
+            extra = {"traffic": "default",
+                     "traces": [trace_name(MANY_N, s, "default")
+                                for s in MANY_SEEDS]}
+        final = harness.runner_many(engine)(bench.wl, states)
+        lanes = []
+        for k, seed in enumerate(MANY_SEEDS):
+            lane = jax.tree.map(lambda x: x[k], final)
+            check = mod.self_check(bench.wl, lane)
+            lanes.append({"seed": seed,
+                          "counters": harness.counters_dict(lane.store),
+                          "events": check["events"],
+                          "check_ok": bool(check["ok"]),
+                          "check_fails": int(check["check_fails"]),
+                          **({"completed": check["completed"]}
+                             if "completed" in check else {})})
+        out.append({"workload": workload, "scenario": scenario,
+                    "n_agents": MANY_N, "seeds": list(MANY_SEEDS),
+                    "engine": engine, "fault": fault, **extra,
+                    "lanes": lanes})
+        jax.clear_caches()
+    return {"cells": out}
+
+
 def golden_path(workload: str) -> pathlib.Path:
     return GOLDEN_DIR / f"{workload}.json"
 
@@ -200,6 +278,11 @@ def jax_traces(cells=None) -> dict:
             "cfg": cfg.traffic, "n_agents": n, "n_keys": cfg.n_pages,
             "seed": seed}
     return out
+
+
+def jax_traces_names(cells) -> list:
+    """The trace names of kv_serving cells, as `jax_traces` keys them."""
+    return [trace_name(n, seed, traffic) for _, n, seed, _, traffic in cells]
 
 
 def _layout(layout: str):
@@ -322,6 +405,17 @@ def _provenance(workload: str) -> dict:
                                 check=True).stdout.strip()
     except (OSError, subprocess.CalledProcessError):
         commit = None
+    if workload == "many":
+        import jax
+        return {"reference": "repro (JAX) harness.runner_many(engine) on "
+                             "jax.vmap(init_state) over the seeds, "
+                             "faults.<fault> where named, CPU backend, "
+                             "kernel_mode ref",
+                "jax_commit": commit,
+                "prng_layout": "kv_serving traces: jax_threefry_"
+                               "partitionable=True (the installed JAX "
+                               f"{jax.__version__}'s default)",
+                "generator": "tests/test_torch_golden.py --write many"}
     if workload == "churn":
         import jax
         return {"reference": "repro (JAX) harness.make_elastic + "
@@ -505,7 +599,9 @@ def test_kv_serving_golden_traces_are_jax_and_held_by_the_port():
                if "trace" in c}
     assert sorted(stored) == sorted({c["trace"] for c in
                                      _golden("kv_serving")["cells"]}
-                                    | set(layouts))
+                                    | set(layouts)
+                                    | set(jax_traces_names(
+                                        many_trace_cells())))
     for name, (tr, meta) in stored.items():
         cfg, n = meta["config"], meta["n_agents"]
         layout = layouts.get(name, "partitionable")
@@ -552,6 +648,53 @@ def test_worksteal_apps_golden_regenerate_from_jax():
             np.testing.assert_array_equal(z[name], sol)
 
 
+def test_many_golden_lanes_match_the_solo_goldens():
+    """`many.json` holds MANY_CELLS at n=64 over MANY_SEEDS; its seed-4
+    lanes equal the solo golden cells of the same engine where one
+    exists (a replica lane is its seed's solo run), its kv_serving cell
+    names the traces it replays, and the `remote_batch_ab` pair's lanes
+    are equal (DESIGN.md §9)."""
+    doc = _golden("many")
+    assert [(c["workload"], c["scenario"], c["engine"], c["fault"])
+            for c in doc["cells"]] == MANY_CELLS
+    solo_held = 0
+    for c in doc["cells"]:
+        assert (c["n_agents"], c["seeds"]) == (MANY_N, list(MANY_SEEDS))
+        assert [lane["seed"] for lane in c["lanes"]] == list(MANY_SEEDS)
+        assert all(lane["check_ok"] for lane in c["lanes"]), c
+        if c["workload"] == "kv_serving":
+            assert c["traces"] == jax_traces_names(
+                [("srsp", MANY_N, s, "fused", "default")
+                 for s in MANY_SEEDS])
+        solo = [g for g in _golden(c["workload"])["cells"]
+                if (g["scenario"], g["n_agents"], g["seed"], g["engine"],
+                    g.get("traffic", "default"))
+                == (c["scenario"], MANY_N, MANY_SEEDS[0], c["engine"],
+                    "default")]
+        if solo and c["fault"] is None:
+            lane = c["lanes"][0]
+            assert (lane["counters"], lane["events"], lane["check_ok"],
+                    lane["check_fails"]) == (
+                solo[0]["counters"], solo[0]["events"], solo[0]["check_ok"],
+                solo[0]["check_fails"]), c
+            solo_held += 1
+    assert solo_held == 8
+    pair = [c["lanes"] for c in doc["cells"]
+            if (c["workload"], c["engine"]) == ("producer_consumer_mc",
+                                                "batched")]
+    assert len(pair) == 2 and pair[0] == pair[1]
+
+
+@pytest.mark.slow
+def test_many_golden_regenerates_from_jax():
+    assert many_from_jax()["cells"] == _golden("many")["cells"]
+    stored = np.load(TRACES_PATH)
+    for name, t in jax_traces(many_trace_cells()).items():
+        for f in ("arrival", "key", "kind", "agent"):
+            np.testing.assert_array_equal(stored[f"{name}/{f}"],
+                                          np.asarray(getattr(t["tr"], f)))
+
+
 @pytest.mark.slow
 def test_churn_golden_regenerates_from_jax():
     assert churn_from_jax()["cells"] == _golden("churn")["cells"]
@@ -565,12 +708,14 @@ def test_churn_golden_regenerates_from_jax():
 def _save_traces() -> None:
     """Every golden trace, the kv_serving cells' and the churn cells'."""
     from repro_torch.traffic import trace as TT
-    TT.save_set(str(TRACES_PATH), {**jax_traces(), **jax_churn_traces()})
+    TT.save_set(str(TRACES_PATH), {**jax_traces(), **jax_churn_traces(),
+                                   **jax_traces(many_trace_cells())})
 
 
 def write(workload: str) -> None:
     path = golden_path(workload)
     doc = churn_from_jax() if workload == "churn" \
+        else many_from_jax() if workload == "many" \
         else golden_from_jax(workload)
     if workload == "worksteal":
         doc["apps"], sols = jax_apps()
@@ -580,7 +725,7 @@ def write(workload: str) -> None:
         return
     if workload == "worksteal":
         np.savez_compressed(APPS_PATH, **sols)
-    if workload in ("kv_serving", "churn"):
+    if workload in ("kv_serving", "churn", "many"):
         _save_traces()
     path.write_text(json.dumps({"provenance": _provenance(workload), **doc},
                                indent=1) + "\n")
@@ -592,6 +737,6 @@ if __name__ == "__main__":
         sys.exit("usage: python tests/test_torch_golden.py --write "
                  "[WORKLOAD ...]")
     names = [a for a in sys.argv[1:] if a != "--write"] \
-        or sorted(CELLS) + ["churn"]
+        or sorted(CELLS) + ["churn", "many"]
     for name in names:
         write(name)

@@ -38,6 +38,7 @@ def test_the_walk_sees_the_port():
             "producer_consumer.py", "producer_consumer_mc.py",
             "faults.py", "prng.py", "graphs.py", "worksteal.py",
             "metrics.py", "samplers.py", "driver.py",
-            "kv_serving.py"} <= names
+            "kv_serving.py", "sweep.py", "ops.py", "common.py", "cases.py",
+            "timing.py"} <= names
     assert _forbidden("repro.core") and _forbidden("jax.numpy")
     assert not _forbidden("repro_torch.core")
