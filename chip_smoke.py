@@ -31,7 +31,8 @@ Phases, each fatal on failure:
      rsp/baseline/scope_only fused; kv_serving on the lock and queue
      grid at seed 4, each cell replaying the request trace the reference
      generated for it (`golden/kv_serving_traces.npz`); each cell's
-     `steady_s` and launches per run.  Then worksteal's app drivers,
+     `steady_s` and launches per run (a warm-up run before each
+     workload's first cell only).  Then worksteal's app drivers,
      `run_app` at the paper's 64 CUs (PageRank on collab_like(8192),
      SSSP on road_like(8192), MIS on router_like(8192); srsp and rsp,
      two iterations), held to `golden/worksteal.json`'s records and
@@ -54,6 +55,19 @@ Phases, each fatal on failure:
      (counters, check, done/completed/offered, recoveries, the final
      alive mask), with its `steady_s`, loop passes and drain_writeback /
      plane_commit launches per run logged (zeroed before each cell).
+     Then the trace ring (`obs.trace`): the n=64 srsp fused cell of each
+     of the six workloads (worksteal at seed 2) run untraced and with
+     `trace.with_trace` at TRACE_CAP slots, each timed (kv_directory and
+     kv_serving alternate the two TRACE_REPEATS times): each traced run's
+     non-trace leaves bitwise the untraced run's, its counters the
+     golden cell's, its decoded events, head (so dropped: kv_serving's
+     ring wraps), op_hist and turn_hist `==` `golden/trace.npz`, and
+     every kernel launching as often traced as untraced; then the trace
+     report's demo (worksteal n=4, a crash and its recovery drain) in
+     process, its Chrome-trace document `==` the reference's
+     (`golden/trace.json`), and `python3 -m repro_torch.obs.report
+     --demo` in a child process printing the reference's report; and
+     the eager time of one traced `record_op` at n=64.
      Then the replica axis, in a child process (so that the process
      that traces with torch.profiler in phases 5 and 6 never runs the
      replica engines): every cell of `golden/many.json` (the
@@ -65,11 +79,13 @@ Phases, each fatal on failure:
      one warm-up run, every lane held with `==`, with each cell's
      `steady_s_per_run`, `steady_s_per_replica`, trips and launches a
      run logged (`trip_plan_many` once a pass of the fused runs, the
-     `remote_batch_ab` pair's makespans equal); and the full-width
-     kv_serving shape as one fused replica run of SERVING_REPLICAS
-     replicas (seeds 4, 5, ...): lane 0 on the reference's trace, held
-     to the full-width golden cell, the others on the traces the port
-     draws on the card, every lane green.
+     `remote_batch_ab` pair's makespans equal); kv_serving at the golden
+     size as one fused replica run of SERVING_REPLICAS replicas (seeds
+     4, 5, ...): lane 0 on the reference's trace, held to the golden
+     cell, the others on the traces the port draws on the card, every
+     lane green; and kv_directory's replica cell traced (each solo state
+     given TRACE_CAP slots, then stacked), each lane's trace `==` its
+     seed's golden trace, its launches the untraced cell's.
      Every kernel must have launched in these paths, each path's launch
      counts set to 0 just before it and read just after.  Then one fused
      producer_consumer_mc srsp n=64 run records the size of each
@@ -82,8 +98,9 @@ Phases, each fatal on failure:
      the same golden cells, with the launch counts set to 0 first: the
      bool drain kernel, its replica instance and trip_plan must launch
      (bool planes take plane_commit's plain version, as in the
-     reference), the packed drain kernels must not; the child's failure
-     fails the run;
+     reference), the packed drain kernels must not; the child also runs
+     kv_directory's traced cell, held to the same golden trace; the
+     child's failure fails the run;
   5. per kernel at the n=64 shapes and at n=256 (`fuse_ab`'s), the
      replica instances at R = 2 and 64 of those shapes: device
      time per call of the kernel and of its plain version (CUDA graph
@@ -96,7 +113,8 @@ Phases, each fatal on failure:
      their replica instances, and for rmsnorm and topk_router at their
      decode and prefill shapes;
   6. the device's busy time and idle share over one fused n=64 srsp run
-     of kv_directory, producer_consumer_mc and worksteal
+     of kv_directory, producer_consumer_mc and worksteal, and the device
+     operations one traced `record_op` and one `record_turn` add
      (torch.profiler);
   7. the serving path of granite-moe-1b-a400m (`repro_torch.serve`):
      (1) the golden config (full width, 2 layers, float32, numpy
@@ -424,24 +442,26 @@ def held(ctx: str, row: dict, ref: dict) -> None:
 def run_cells(cells, launch_counters) -> list:
     """The cells through `run_cell` on the card, each held to its golden
     cell (a kv_serving cell on its golden trace); launch counts set to 0
-    first.  Raises on any difference."""
+    first.  Only a workload's first cell runs a warm-up run before its
+    timed one.  Raises on any difference."""
     from repro_torch.workloads import sweep
     goldens = {w: load_golden(w) for w in {c[0] for c in cells}}
     traces = load_traces() if any(len(c) > 5 for c in cells) else {}
     for f in launch_counters:
         f.launches = 0
-    rows = []
+    rows, warmed = [], set()
     for workload, scenario, n, seed, engine, *trace in cells:
         before = [f.launches for f in launch_counters]
         kw = {}
         if trace:
             tr, meta = traces[trace[0]]
             kw = {"build_kw": {"traffic": meta["config"]}, "trace": tr}
+        warm = workload not in warmed
+        warmed.add(workload)
         row = sweep.run_cell(workload, scenario, n, seed, engine,
-                             device="cuda", **kw)
-        # run_cell runs the cell twice (warm-up, timed): launches per run
+                             device="cuda", warmup=warm, **kw)
         row["launches_per_run"] = {
-            f.__name__: (f.launches - b) // 2
+            f.__name__: (f.launches - b) // (2 if warm else 1)
             for f, b in zip(launch_counters, before)}
         ref = golden_cell(goldens[workload], scenario, n, seed, engine,
                           *trace)
@@ -576,6 +596,214 @@ def run_churn(names=None, launch_counters=()) -> list:
             raise AssertionError("the zero-churn cell left kv_directory's "
                                  "golden counters")
     return rows
+
+
+# the trace phase: phase 4's n=64 srsp fused cell of each workload
+# (worksteal's at seed 2), traced with TRACE_CAP slots, held to
+# golden/trace.npz and golden/trace.json (the JAX reference's traces)
+TRACE_CAP = 4096
+TRACE_WORKLOADS = ("kv_directory",) + LOCK_QUEUE + ("worksteal",
+                                                    "kv_serving")
+
+
+def load_trace_golden() -> tuple:
+    """(golden/trace.json, golden/trace.npz's arrays)."""
+    import numpy as np
+    base = os.path.join(ROOT, "src", "repro_torch", "golden", "trace")
+    with open(base + ".json") as f:
+        doc = json.load(f)
+    with np.load(base + ".npz") as z:
+        return doc, {k: z[k] for k in z.files}
+
+
+def trace_held(ctx: str, store, name: str, arrays: dict) -> None:
+    """Raise unless `store`'s trace is the golden cell `name`'s: the
+    decoded columns, head (so dropped), op_hist and turn_hist."""
+    import numpy as np
+
+    from repro_torch.obs import export
+    tl = store.trace
+    dec = export.decode(tl)
+    got = {**dec["events"], "head": tl.head.cpu().numpy(),
+           "op_hist": tl.op_hist.cpu().numpy(),
+           "turn_hist": tl.turn_hist.cpu().numpy()}
+    for k, v in got.items():
+        want = arrays[f"{name}/{k}"]
+        if v.dtype != want.dtype or not np.array_equal(v, want):
+            raise AssertionError(f"{ctx}: trace {k} differs from the "
+                                 f"golden trace of {name}")
+
+
+def same_leaves(torch, a, b) -> bool:
+    """Two port trees, leaf for leaf, same dtype and bits."""
+    from repro_torch import convert
+    x, y = convert.leaves(a), convert.leaves(b)
+    return len(x) == len(y) and all(
+        u.dtype == v.dtype and torch.equal(u, v) for u, v in zip(x, y))
+
+
+def trace_bench(workload: str, seed: int, traces: dict, golden: dict):
+    """A trace golden cell's bench on the card (kv_serving on the
+    reference's trace)."""
+    from repro_torch import workloads
+    mod = workloads.get(workload)
+    bench = mod.build("srsp", N_MAIN, seed=seed, device="cuda")
+    if workload == "kv_serving":
+        bench = mod.with_trace(bench, traces[golden["trace"]][0])
+    return bench
+
+
+# the cells whose traced and untraced runs alternate TRACE_REPEATS times
+# (untraced first, then traced first, ...), their `steady_s` the medians
+TRACE_TIMED = ("kv_directory", "kv_serving")
+TRACE_REPEATS = 3
+
+
+def trace_cells(torch, launch_counters, names=None) -> list:
+    """Phase 4, the trace ring: each n=64 srsp fused cell of
+    TRACE_WORKLOADS (or `names`) run untraced and traced with TRACE_CAP
+    slots, each run timed (no warm-up: phase 4 built and loaded
+    everything) with the launch counts read before and after; the
+    TRACE_TIMED cells alternate the two TRACE_REPEATS times, the others
+    run once (untraced first).  Each traced run's non-trace leaves are
+    bitwise the untraced run's, its counters and verdict the golden
+    cell's, its trace the golden trace (kv_serving's ring wraps: 6099
+    events, 2003 dropped), and each kernel launches as often traced as
+    untraced."""
+    import statistics
+
+    from repro_torch.obs import trace as TL
+    from repro_torch.workloads import harness
+    doc, arrays = load_trace_golden()
+    golden = {c["name"]: c for c in doc["cells"]}
+    traces = load_traces()
+    recs = []
+    for w in names or TRACE_WORKLOADS:
+        seed = 2 if w == "worksteal" else 4
+        name = f"{w} n={N_MAIN} seed={seed} fused"
+        times = {0: [], TRACE_CAP: []}
+        for rep in range(TRACE_REPEATS if w in TRACE_TIMED else 1):
+            runs = {}
+            for cap in (0, TRACE_CAP)[::-1 if rep % 2 else 1]:
+                bench = trace_bench(w, seed, traces, golden[name])
+                state = TL.with_trace(bench.state, cap)
+                torch.cuda.synchronize()
+                before = [f.launches for f in launch_counters]
+                t0 = time.perf_counter()
+                final = harness.run_fused(bench.wl, state, *bench.ops)
+                torch.cuda.synchronize()
+                times[cap].append(time.perf_counter() - t0)
+                runs[cap] = (final, {
+                    f.__name__: f.launches - b
+                    for f, b in zip(launch_counters, before)},
+                    bench.check(final))
+            (off, off_l, _), (on, on_l, check) = runs[0], runs[TRACE_CAP]
+            if not same_leaves(torch, TL.strip(on), off):
+                raise AssertionError(f"{name}: tracing moved a non-trace "
+                                     f"leaf")
+            if on_l != off_l:
+                raise AssertionError(f"{name}: launches traced {on_l} != "
+                                     f"untraced {off_l}")
+            held(f"{name} traced", {
+                "counters": harness.counters_dict(on.store),
+                "events": check["events"], "check_ok": bool(check["ok"]),
+                "check_fails": int(check["check_fails"])}, golden[name])
+            trace_held(name, on.store, name, arrays)
+        summ = TL.summary(on.store)
+        if summ != golden[name]["summary"]:
+            raise AssertionError(f"{name}: summary {summ} != golden")
+        off_s = statistics.median(times[0])
+        on_s = statistics.median(times[TRACE_CAP])
+        rec = {"cell": name, "steady_s_untraced": off_s,
+               "steady_s_traced": on_s, "steady_s_untraced_runs": times[0],
+               "steady_s_traced_runs": times[TRACE_CAP], "launches": on_l,
+               **summ}
+        log(f"  {name}: steady_s untraced {times[0]} traced "
+            f"{times[TRACE_CAP]} (medians x{on_s / off_s:.3f}); events "
+            f"{summ['trace_events']} dropped {summ['trace_dropped']}; turn "
+            f"latency p50/p95/p99 {summ['latency_p50']}/"
+            f"{summ['latency_p95']}/{summ['latency_p99']}; launches {on_l} "
+            f"both ways")
+        recs.append(rec)
+    return recs
+
+
+def trace_demo() -> dict:
+    """Phase 4, the trace report's demo on the card: in this process its
+    Chrome-trace document `==` the reference's (golden/trace.json), then
+    `python3 -m repro_torch.obs.report --demo` in a child process, whose
+    output must be the reference's report, check_ok=True, recovered=1."""
+    import tempfile
+
+    from repro_torch.obs import export, report
+    want = load_trace_golden()[0]["demo"]
+    fin, check, label = report.demo(device="cuda", cap=TRACE_CAP)
+    doc = json.loads(json.dumps(export.trace_doc(fin.s.store, label=label)))
+    if doc != want["doc"] or not check["ok"]:
+        raise AssertionError("the report demo's document differs from the "
+                             "reference's")
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = os.path.join(tmp, "TRACE_demo.json")
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.obs.report", "--demo",
+             "--cap", str(TRACE_CAP), "--out", out_path], env=env,
+            capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        with open(out_path) as f:
+            written = json.load(f)
+    expect = (f"{want['report']}\ncheck_ok=True recovered=1\n"
+              f"wrote {out_path}\n")
+    if out.returncode or out.stdout != expect or written != want["doc"]:
+        raise AssertionError(f"report --demo ({out.returncode}):\n"
+                             f"{out.stdout}\n{out.stderr[-2000:]}")
+    for line in out.stdout.splitlines()[:-1]:
+        log(f"    | {line}")
+    return {"events": doc["srsp"]["events"], "check_ok": True,
+            "recovered": 1, "command_s": wall}
+
+
+def record_op_call(torch):
+    """One traced `record_op` at n=64 with every lane active, and one
+    `record_turn`, as calls."""
+    from repro_torch.core import protocol as P
+    from repro_torch.obs import trace as TL
+    cfg = P.ProtoConfig(n_caches=N_MAIN, n_words=64 * 1024)
+    st = TL.with_trace(P.make_store(cfg, "cuda"), TRACE_CAP)
+    active = torch.ones(N_MAIN, dtype=torch.bool, device="cuda")
+    addrs = torch.arange(N_MAIN, dtype=torch.int32, device="cuda")
+    clock0 = st.counters.cycles - 3.0
+    outcome = torch.full((N_MAIN,), TL.OC_HIT, dtype=torch.int32,
+                         device="cuda")
+    return (lambda: TL.record_op(st, active, TL.LOAD, 0, addrs, clock0,
+                                 outcome),
+            lambda: TL.record_turn(st, clock0))
+
+
+def record_op_eager(torch) -> dict:
+    """Phase 4 (before any profiler trace): the eager wall time of one
+    traced record_op and record_turn call."""
+    op, turn = record_op_call(torch)
+    rec = {"record_op_eager_ms": T.eager_ms(op),
+           "record_turn_eager_ms": T.eager_ms(turn)}
+    log(f"  one traced record_op: eager {rec['record_op_eager_ms']:.4f} ms "
+        f"a call; record_turn {rec['record_turn_eager_ms']:.4f} ms")
+    return rec
+
+
+def record_op_ops(torch) -> dict:
+    """Phase 6: the device operations one traced record_op and one
+    record_turn add (torch.profiler)."""
+    op, turn = record_op_call(torch)
+    ops, turns = T.device_ops(op), T.device_ops(turn)
+    rec = {"record_op": sum(ops.values()), "record_turn": sum(turns.values()),
+           "record_op_by_name": ops, "record_turn_by_name": turns}
+    log(f"  one traced record_op: {rec['record_op']} device operations; "
+        f"record_turn {rec['record_turn']}")
+    for k, v in sorted(ops.items()):
+        log(f"    x{v}  {k[:90]}")
+    return rec
 
 
 def app_drivers() -> list:
@@ -743,21 +971,23 @@ def many_golden(launch_counters, cells=None) -> list:
     return rows
 
 
-# the full-width replica run's replica count: lane 0 the reference's trace,
-# the others the port's own draws on the card
+# the own-trace replica run's replica count: lane 0 the reference's trace,
+# the other the port's own draw on the card
 SERVING_REPLICAS = 2
 
 
 def serving_replicas(launch_counters) -> dict:
-    """Phase 4, the full-width kv_serving shape as one fused replica run
-    of SERVING_REPLICAS replicas (seeds 4, 5, ...): lane 0 replays the
-    reference's trace of the full-width golden cell and is held to it,
-    the other lanes serve the traces the port draws on the card, each to
-    a green check.  Launch counts set to 0 just before and read just
-    after; no warm-up."""
+    """Phase 4, kv_serving at the golden size (n=64, the default traffic)
+    as one fused replica run of SERVING_REPLICAS replicas (seeds 4, 5,
+    ...): lane 0 replays the reference's trace of the golden cell and is
+    held to it, the other lanes serve the traces the port draws on the
+    card, each to a green check.  Launch counts set to 0 just before and
+    read just after; no warm-up.  (The full-width traffic runs solo in
+    the full-width phase; as a replica run it took 219 s of a whole run
+    of 1406.5 s, PERF.md §6.)"""
     from repro_torch.workloads import harness, kv_serving, sweep
-    ref = next(c for c in load_golden("kv_serving")["cells"]
-               if c["traffic"] == "serving")
+    ref = golden_cell(load_golden("kv_serving"), "srsp", N_MAIN, 4, "fused",
+                      "n64_seed4_default")
     tr, meta = load_traces()[ref["trace"]]
     cfg, n = meta["config"], meta["n_agents"]
     seeds = list(range(ref["seed"], ref["seed"] + SERVING_REPLICAS))
@@ -856,12 +1086,20 @@ def bool_layout_child(torch, SF, FT) -> int:
                              f": want the bool replica drain, no packed one")
     log(f"    launches in the bool-layout replica cell: {many_launches}")
     launches.update(many_launches)
+    traced, traced_launches = counted(
+        counters, lambda: trace_cells(torch, counters, ["kv_directory"]))
+    if not traced_launches["drain_writeback_bool"] \
+            or traced_launches["drain_writeback"]:
+        raise AssertionError(f"bool layout traced launches "
+                             f"{traced_launches}")
+    for name in counters:
+        launches[name.__name__] += traced_launches[name.__name__]
     print(json.dumps({"rows": rows, "churn": churn, "many": many,
-                      "launches": launches}))
+                      "traced": traced, "launches": launches}))
     return 0
 
 
-def replica_child(SF, FT) -> int:
+def replica_child(torch, SF, FT) -> int:
     """Phase 4's replica runs in a child process, so that the process
     that traces with torch.profiler (phases 5 and 6) never runs the
     replica engines (PERF.md §7): the cells of `golden/many.json`, then
@@ -872,11 +1110,60 @@ def replica_child(SF, FT) -> int:
     many, launches = counted(counters, lambda: many_golden(counters))
     log(f"    launches in the replica cells: {launches}")
     scale = serving_replicas(counters)
+    untraced = next(r for r in many if (r["workload"], r["scenario"],
+                                        r["engine"], r["fault"])
+                    == ("kv_directory", "srsp", "fused", None))
+    traced, traced_launches = counted(counters, lambda: trace_replicas(
+        torch, counters, untraced["launches_per_run"]))
     for name in launches:
-        launches[name] += scale["launches_per_run"][name]
+        launches[name] += scale["launches_per_run"][name] \
+            + traced_launches[name]
     print(json.dumps({"many": many, "serving_replicas": scale,
-                      "launches": launches}))
+                      "traced": traced, "launches": launches}))
     return 0
+
+
+def trace_replicas(torch, launch_counters, untraced_launches: dict) -> dict:
+    """The replica child: kv_directory n=64 srsp fused over seeds 4 and 5
+    in one traced replica run (each solo state given TRACE_CAP slots,
+    then stacked), each lane's trace held to its seed's golden trace and
+    its counters to the golden lanes of `many.json`; launches equal the
+    untraced replica cell's (`untraced_launches`)."""
+    from repro_torch import workloads
+    from repro_torch.obs import trace as TL
+    from repro_torch.workloads import harness, sweep
+    mod = workloads.get("kv_directory")
+    bench = mod.build("srsp", N_MAIN, seed=4, device="cuda")
+    seeds = [4, 5]
+    cell = next(c for c in load_golden("many")["cells"] if (
+        c["workload"], c["scenario"], c["engine"], c["fault"])
+        == ("kv_directory", "srsp", "fused", None))
+    _, arrays = load_trace_golden()
+    before = [f.launches for f in launch_counters]
+    row = sweep.run_vmapped_cell(
+        "kv_directory", "srsp", N_MAIN, seeds, "fused", device="cuda",
+        warmup=False, keep_stores=True, states=lambda: harness.stack([
+            TL.with_trace(mod.init_state(bench.wl, s, "cuda"), TRACE_CAP)
+            for s in seeds]))
+    launches = {f.__name__: f.launches - b
+                for f, b in zip(launch_counters, before)}
+    ctx = f"kv_directory srsp n={N_MAIN} seeds={seeds} fused traced"
+    for lane, store, ref, seed in zip(row["lanes"], row["_stores"],
+                                      cell["lanes"], seeds):
+        held(f"{ctx} seed {seed}", lane, ref)
+        trace_held(f"{ctx} seed {seed}", store,
+                   f"kv_directory n={N_MAIN} seed={seed} fused", arrays)
+    if launches != untraced_launches:
+        raise AssertionError(f"{ctx}: launches {launches} != untraced "
+                             f"{untraced_launches}")
+    log(f"  {ctx}: each lane's trace == its seed's golden trace; "
+        f"steady_s_per_run={row['steady_s_per_run']}; launches {launches}"
+        f" as untraced; latency p99 {row['latency_p99']}")
+    return {"cell": ctx, "steady_s_per_run": row["steady_s_per_run"],
+            "launches": launches,
+            **{k: row[k] for k in ("latency_p50", "latency_p95",
+                                   "latency_p99", "latency_turns",
+                                   "trace_events", "trace_dropped")}}
 
 
 def run_child(flag: str, tag: str, env=None) -> dict:
@@ -1528,7 +1815,7 @@ def main(argv=None) -> int:
     if args.bool_layout_child:
         return bool_layout_child(torch, SF, FT)
     if args.replica_child:
-        return replica_child(SF, FT)
+        return replica_child(torch, SF, FT)
     t_start = time.perf_counter()
 
     smi = nvidia_smi()
@@ -1573,16 +1860,27 @@ def main(argv=None) -> int:
     churn, churn_launches = counted(counters,
                                     lambda: run_churn(None, counters[:2]))
     log(f"    launches in the churn cells: {churn_launches}")
+    phase(t_start, "[4] the trace ring: the six n=64 srsp fused cells "
+                   "untraced and traced (golden/trace.*), the report demo")
+    traced, trace_launches = counted(counters,
+                                     lambda: trace_cells(torch, counters))
+    log(f"    launches in the traced and untraced cells: {trace_launches}")
+    if not all(trace_launches.values()):
+        raise AssertionError(f"a kernel never launched in the trace "
+                             f"cells: {trace_launches}")
+    demo = trace_demo()
+    trace_op = record_op_eager(torch)
     for name in launches:
         launches[name] += app_launches[name] \
-            + scale["launches_per_run"][name] + churn_launches[name]
+            + scale["launches_per_run"][name] + churn_launches[name] \
+            + trace_launches[name]
     log(f"    launches on the main path: {launches}")
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the main path never launched: "
                              f"{launches}")
     phase(t_start, "[4] replica axis, in a child process: golden/many.json "
-                   "through run_vmapped_cell, then the full-width "
-                   f"kv_serving shape, {SERVING_REPLICAS} replicas")
+                   "through run_vmapped_cell, kv_serving on own traces "
+                   f"({SERVING_REPLICAS} replicas), a traced replica run")
     replica = run_child("--replica-child", "replica")
     many, scale_many = replica["many"], replica["serving_replicas"]
     for name in ("drain_writeback_many", "plane_commit_many",
@@ -1614,6 +1912,7 @@ def main(argv=None) -> int:
     prof = [profile_cell(torch, w, seed, rows[cells.index((
         w, "srsp", N_MAIN, seed, "fused"))]["steady_s"])
         for w, seed in PROFILED]
+    trace_op.update(record_op_ops(torch))
 
     phase(t_start, "[7] serving path: granite-moe-1b-a400m through "
                    "repro_torch.serve.engine")
@@ -1642,6 +1941,10 @@ def main(argv=None) -> int:
                        "apps": apps, "serving_scale": scale,
                        "churn": churn, "many": many,
                        "serving_replicas": scale_many,
+                       "trace": {"cells": traced, "demo": demo,
+                                 "record_op": trace_op,
+                                 "replica": replica["traced"],
+                                 "bool": bool_run["traced"]},
                        "remote_batches": batches,
                        "bool_layout": bool_run,
                        "kernels": kernels, "profile": prof,

@@ -61,3 +61,12 @@ def make_counters(n_caches: int, device=None) -> Counters:
 
 def makespan(c: Counters) -> torch.Tensor:
     return c.cycles.max()
+
+
+def charged_since(c: Counters, clock0) -> torch.Tensor:
+    """Per-cache cycles charged since a captured clock vector, float32:
+    what the event trace and the per-turn latency histograms attribute
+    to each lane (DESIGN.md §11).  A lane's delta across an op includes
+    what other lanes' ops billed it in the same call."""
+    return c.cycles - torch.as_tensor(clock0, dtype=torch.float32,
+                                      device=c.cycles.device)

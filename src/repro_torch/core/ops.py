@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import protocol as P
+from repro_torch.core import tables
 from repro_torch.obs import trace as T
 
 LOCAL = 0    # own-L1 synchronization (atomic_*_wg)
@@ -71,13 +72,46 @@ def _release_rem(proto: P.Protocol, cfg, st, rem, addrs, vals):
                   lambda s: s, st)
 
 
+def _acquire_outcome(cfg, st, addrs, scope):
+    """Trace outcome per lane from the tables before the op (`record_op`
+    calls it only when tracing is on): a LOCAL lane promotes iff its PA-TBL holds
+    the address, a REMOTE lane probes iff another cache's LR-TBL records
+    it (else the probe round NACKs), a GLOBAL lane pays the full
+    invalidate."""
+    n = cfg.n_caches
+    promote = tables.pa_contains(st.pa, addrs)
+    # ptrs[c, i]: cache c's LR-TBL record of lane i's address
+    ptrs = tables.lr_lookup(st.lr, addrs[None, :].expand(n, n))
+    lanes = torch.arange(n, device=addrs.device)
+    sharer = ((ptrs >= 0) & (lanes[:, None] != lanes[None, :])).any(dim=0)
+    scope_a = P._i32(cfg, st, scope)
+    loc = torch.where(promote, T.OC_PROMOTE, T.OC_HIT)
+    rem = torch.where(sharer, T.OC_PROBE, T.OC_NACK)
+    return torch.where(scope_a == LOCAL, loc,
+                       torch.where(scope_a == REMOTE, rem, T.OC_GLOBAL))
+
+
+def _release_outcome(cfg, st, scope):
+    scope_a = P._i32(cfg, st, scope)
+    return torch.where(scope_a == LOCAL, T.OC_HIT,
+                       torch.where(scope_a == REMOTE, T.OC_PROBE,
+                                   T.OC_GLOBAL))
+
+
+def _l1_state(cfg, st, addrs, plane):
+    """The L1 metadata bit of each lane at `addrs` before the op (trace
+    classification)."""
+    b, o = P._split(cfg, P._i32(cfg, st, addrs))
+    return P._pl_get(plane, P._lanes(cfg, st), b, o)
+
+
 def acquire(proto: P.Protocol, cfg: P.ProtoConfig, st: P.Store, active,
             addrs, expect, new, scope=LOCAL):
     """Scoped acquire: CAS(expect -> new) on addrs[i] at scope[i] for
     every active lane.  Returns (store', old [n])."""
     active = P._bool(cfg, st, active)
     addrs, expect, new = (P._i32(cfg, st, a) for a in (addrs, expect, new))
-    clock0 = st.counters.cycles
+    st0 = st
     if isinstance(scope, int):
         _check_static(scope)
         if scope == LOCAL:
@@ -100,7 +134,10 @@ def acquire(proto: P.Protocol, cfg: P.ProtoConfig, st: P.Store, active,
         old = torch.where(rem, old_r, torch.where(glob, old_g, old_l))
     # clock-stamped lease bookkeeping: pure metadata, charges nothing
     st = P.lease_stamp(st, active, addrs)
-    return T.record_op(st, active, T.ACQUIRE, scope, addrs, clock0), old
+    st = T.record_op(st, active, T.ACQUIRE, scope, addrs,
+                     st0.counters.cycles,
+                     lambda: _acquire_outcome(cfg, st0, addrs, scope))
+    return st, old
 
 
 def release(proto: P.Protocol, cfg: P.ProtoConfig, st: P.Store, active,
@@ -127,16 +164,21 @@ def release(proto: P.Protocol, cfg: P.ProtoConfig, st: P.Store, active,
         st = _release_rem(proto, cfg, st, active & (scope_a == REMOTE),
                           addrs, vals)
     st = P.lease_clear(st, active)
-    return T.record_op(st, active, T.RELEASE, scope, addrs, clock0)
+    return T.record_op(st, active, T.RELEASE, scope, addrs, clock0,
+                       lambda: _release_outcome(cfg, st, scope))
 
 
 def load(cfg: P.ProtoConfig, st: P.Store, active, addrs, scope=LOCAL):
     """Ordinary scoped read, one per active agent."""
     if isinstance(scope, int):
         _check_static(scope)
-    clock0 = st.counters.cycles
+    st0 = st
     st, val = P.b_load(cfg, st, active, addrs)
-    return T.record_op(st, active, T.LOAD, scope, addrs, clock0), val
+    st = T.record_op(st, active, T.LOAD, scope, addrs, st0.counters.cycles,
+                     lambda: torch.where(_l1_state(cfg, st0, addrs,
+                                                   st0.wvalid),
+                                         T.OC_HIT, T.OC_MISS))
+    return st, val
 
 
 def store(cfg: P.ProtoConfig, st: P.Store, active, addrs, vals,
@@ -144,6 +186,11 @@ def store(cfg: P.ProtoConfig, st: P.Store, active, addrs, vals,
     """Ordinary scoped write, one per active agent."""
     if isinstance(scope, int):
         _check_static(scope)
-    clock0 = st.counters.cycles
+    st0 = st
     st, pos = P.b_store_word(cfg, st, active, addrs, vals, force_tail)
-    return T.record_op(st, active, T.STORE, scope, addrs, clock0), pos
+    # write-combining: a "hit" merges into an already-dirty word
+    st = T.record_op(st, active, T.STORE, scope, addrs, st0.counters.cycles,
+                     lambda: torch.where(_l1_state(cfg, st0, addrs,
+                                                   st0.wdirty),
+                                         T.OC_HIT, T.OC_MISS))
+    return st, pos

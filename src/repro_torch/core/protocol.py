@@ -118,7 +118,7 @@ def make_store(cfg: ProtoConfig, device=None) -> Store:
         lease=Lease(addr=torch.full((n,), INVALID, dtype=I32, device=dev),
                     stamp=torch.zeros((n,), dtype=F32, device=dev)),
         counters=make_counters(n, dev),
-        trace=obs.make(0, n, dev))
+        trace=obs.make(obs.default_cap(), n, dev))
 
 
 # --------------------------------------------------------------------------
@@ -252,6 +252,15 @@ def _add_at(x, hot, v):
 def _split(cfg, addrs):
     return (torch.div(addrs, cfg.block_words, rounding_mode="floor"),
             torch.remainder(addrs, cfg.block_words))
+
+
+def _pl_get(plane, lane, b, o):
+    """Per-lane flag read flags[lane, b, o] -> bool [n], in either
+    layout."""
+    if plane.dtype == torch.bool:
+        return plane[lane, b.long(), o.long()]
+    return bitmask.test_word(
+        plane[lane, b.long(), bitmask.word_index(o).long()], o)
 
 
 def _pl_clear(plane, lane, b, o, off):

@@ -22,12 +22,15 @@ N_BUCKETS = 24
 
 # power-of-two upper edges 1, 2, 4, ..., 2^(B-2); exact in i32/f32
 _EDGES = np.asarray([1 << k for k in range(N_BUCKETS - 1)], np.float32)
+_EDGES_ON = {}      # the edges on each device they were asked for
 
 
 def bucket_index(x: torch.Tensor) -> torch.Tensor:
     """Bucket of each non-negative float32 sample (exact edges)."""
     x = x.to(torch.float32)
-    edges = torch.from_numpy(_EDGES).to(x.device)
+    edges = _EDGES_ON.get(x.device)
+    if edges is None:
+        edges = _EDGES_ON[x.device] = torch.from_numpy(_EDGES).to(x.device)
     return torch.searchsorted(edges, x, right=True).to(torch.int32)
 
 

@@ -63,6 +63,8 @@ and runs each turn form (the masked local turn, the co-scheduled remote
 batch, the serial remote turn) only if some replica takes it; each
 replica keeps the result of its own form, and a replica that is no
 longer live keeps its state, as JAX's batched `while_loop` freezes it.
+A traced replica (a solo state given `obs.trace.with_trace`, then
+stacked) buckets each of its turns into its own trace.
 Each lane ends bitwise equal to the solo run of its seed, `rounds`
 included.
 """
@@ -168,7 +170,9 @@ def charge(st: P.Store, mask, cycles) -> P.Store:
 
 
 def _note_turn(s0, s1):
-    """Per-turn latency histogram hook (identity: traces are disabled)."""
+    """Bucket each agent's charged cycles across one scheduler turn or
+    trip into the trace's per-turn latency histogram (DESIGN.md §11);
+    `record_turn` leaves an untraced store as it is."""
     return s1._replace(store=T.record_turn(s1.store,
                                            s0.store.counters.cycles))
 
@@ -371,6 +375,8 @@ def _run_many(wl: Workload, states, ops, plan_fn, engine):
         forms += [bounded(wl.remote_turn_b) if cap else None,
                   bounded(wl.remote_turn)]
     decide = vmap(decide)
+    note = vmap(_note_turn)
+    traced = T.enabled(states.store.trace)
     s = states
     # whether a replica of the last trip took a remote form that needed
     # more lanes than its bound: read with this trip's flags
@@ -409,7 +415,9 @@ def _run_many(wl: Workload, states, ops, plan_fn, engine):
                 out = _rows(go, res, out)
                 if bad is not None:
                     over = over | (go & bad).any()
-        s = out
+        # each live replica's turn into its own histogram; a replica no
+        # longer live kept its state, so its clocks did not move
+        s = note(s, out) if traced else out
 
 
 def run_batched_many(wl: Workload, states, *ops):

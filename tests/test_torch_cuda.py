@@ -585,6 +585,41 @@ def test_kv_serving_cell_on_card_replays_the_jax_trace(cuda):
     _same_as_golden(row, want)
 
 
+TRACED_ON_CARD = ["kv_directory n=16 seed=4 fused",
+                  "producer_consumer_mc n=16 seed=4 fused",
+                  "kv_serving n=16 seed=4 fused",
+                  "kv_directory n=16 seed=4 batched_elastic leave_join"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", TRACED_ON_CARD)
+def test_traced_cell_on_card_is_the_cpu_port(cuda, name):
+    """A traced n=16 golden cell on the card: every leaf, trace included,
+    `==` the CPU port's run, the trace the reference's, and each kernel
+    launched as often as in the untraced run on the card."""
+    from test_torch_trace_golden import (TRACE_CAP, TRACE_CELLS,
+                                         held_to_golden, run_port,
+                                         trace_cell_name)
+    cell = next(c for c in TRACE_CELLS if trace_cell_name(c) == name)
+    counters = (SF.drain_writeback, FT.plane_commit, FT.trip_plan)
+
+    def counted(cap):
+        before = [f.launches for f in counters]
+        final, store, _ = run_port(cell, cap, cuda)
+        torch.cuda.synchronize()
+        return final, store, [f.launches - b
+                              for f, b in zip(counters, before)]
+
+    _, _, off = counted(0)
+    final, store, on = counted(TRACE_CAP)
+    assert on == off and on[0] > 0
+    held_to_golden(store, name)
+    cpu, _, _ = run_port(cell)
+    from repro_torch import convert
+    for a, b in zip(convert.leaves(final), convert.leaves(cpu)):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
 def test_dispatch_is_by_device():
     """CPU tensors take the plain version and launch nothing; a mix of
     devices is refused."""
@@ -686,3 +721,34 @@ def _many_golden_cell(cuda, k):
     assert row["lanes"] == cell["lanes"]
     assert (FT.trip_plan_many.launches > before) \
         == (cell["engine"] == "fused")
+
+
+@pytest.mark.cuda
+def test_traced_replica_run_on_card(cuda):
+    """kv_directory n=16 over seeds 4 and 5, traced, in one replica run on
+    the card: each lane `==` the CPU port's traced solo run of its seed,
+    lane 0's trace the golden one."""
+    _in_child("_traced_replica_run")
+
+
+def _traced_replica_run(cuda):
+    from repro_torch import convert, workloads
+    from repro_torch.obs import trace as TL
+    from repro_torch.workloads import harness
+    from test_torch_trace_golden import held_to_golden
+    mod = workloads.get("kv_directory")
+    seeds = (4, 5)
+
+    def states(device):
+        b = mod.build("srsp", 16, seed=4, device=device)
+        return b, harness.stack([TL.with_trace(
+            mod.init_state(b.wl, s, device), 4096) for s in seeds])
+
+    b, st = states(cuda)
+    fin = harness.run_fused_many(b.wl, st, *b.ops)
+    held_to_golden(harness.lane(fin, 0).store,
+                   "kv_directory n=16 seed=4 fused")
+    bc, stc = states("cpu")
+    cpu = harness.run_fused_many(bc.wl, stc, *bc.ops)
+    for a, c in zip(convert.leaves(fin), convert.leaves(cpu)):
+        assert a.dtype == c.dtype and torch.equal(a.cpu(), c)

@@ -25,7 +25,13 @@ worksteal and kv_serving.  Beside them:
   tests/test_churn.py and tests/test_kv_serving.py, a zero-churn cell
   and leave/join cells, each with its counters, check verdict,
   `done`/`completed`/`offered` where the check has them, recoveries and
-  the final alive mask.
+  the final alive mask;
+* `trace.npz` and `trace.json` hold the traced cells (`TRACE_CELLS`,
+  srsp at ring capacity TRACE_CAP, and the trace report's demo cell):
+  the npz each cell's decoded event columns (oldest first), `head`,
+  `op_hist` and `turn_hist`; the json each cell's `trace.summary`,
+  `export.trace_meta`, counters and check verdict, and the demo's whole
+  Chrome-trace document, its text report and verdict.
 
 Checks:
 
@@ -35,13 +41,14 @@ Checks:
   are the reference's draws for their provenance;
 * tier-1: `many.json`'s seed-4 lanes are the solo golden cells;
 * slow: regenerating every file from the JAX package gives the
-  committed cells exactly.
+  committed cells exactly (`trace.*` included).
 
 Regenerate the files with
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_golden.py --write [WORKLOAD ...]
 
-(`churn` among the names writes `churn.json`, `many` writes `many.json`).
+(`churn` among the names writes `churn.json`, `many` writes `many.json`,
+`trace` writes `trace.npz` and `trace.json`).
 
 A file whose cells come out unchanged is left as it is, provenance
 included.
@@ -250,6 +257,106 @@ def many_from_jax(cells=None) -> dict:
     return {"cells": out}
 
 
+# the traced cells: (workload, n_agents, seed, engine, churn), srsp at ring
+# capacity TRACE_CAP.  The six workloads fused at n=16; kv_directory
+# under the serial, batched and batched elastic engines (leave/join) at
+# n=16; the six at n=64 (the cells of each golden file that the card
+# runs), and kv_directory n=64 seed 5 (the replica cell's second lane).
+# kv_serving replays the reference's trace of its (n, seed).
+TRACE_CAP = 4096
+TRACE_WORKLOADS = ("kv_directory", "reader_lock", "producer_consumer",
+                   "producer_consumer_mc", "worksteal", "kv_serving")
+TRACE_CELLS = (
+    [(w, 16, 4, "fused", ()) for w in TRACE_WORKLOADS]
+    + [("kv_directory", 16, 4, e, ()) for e in ("serial", "batched")]
+    + [("kv_directory", 16, 4, "batched_elastic", tuple(LEAVE_JOIN))]
+    + [(w, 64, 2 if w == "worksteal" else 4, "fused", ())
+       for w in TRACE_WORKLOADS]
+    + [("kv_directory", 64, 5, "fused", ())])
+TRACE_COLS = ("clock", "agent", "kind", "scope", "addr", "cycles", "outcome")
+TRACE_NPZ = GOLDEN_DIR / "trace.npz"
+TRACE_JSON = GOLDEN_DIR / "trace.json"
+
+
+def trace_cell_name(cell) -> str:
+    w, n, seed, engine, churn = cell
+    return f"{w} n={n} seed={seed} {engine}" + (" leave_join" if churn
+                                                else "")
+
+
+def trace_arrays(name: str, dec: dict, tl) -> dict:
+    """A traced cell's npz arrays: decoded columns, head and histograms."""
+    out = {f"{name}/{k}": np.asarray(v) for k, v in dec["events"].items()}
+    out[f"{name}/head"] = np.asarray(tl.head)
+    out[f"{name}/op_hist"] = np.asarray(tl.op_hist)
+    out[f"{name}/turn_hist"] = np.asarray(tl.turn_hist)
+    return out
+
+
+def trace_from_jax(cells=None, demo=True) -> tuple:
+    """Every traced cell (or `cells`) and the report demo through the JAX
+    reference: (json doc, npz arrays)."""
+    import jax
+    from repro import workloads
+    from repro.core import protocol as P
+    from repro.obs import export, trace as T
+    from repro.workloads import faults, harness
+
+    docs, arrays = [], {}
+    for cell in TRACE_CELLS if cells is None else cells:
+        w, n, seed, engine, churn = cell
+        name = trace_cell_name(cell)
+        bench = workloads.get(w).build("srsp", n, seed=seed)
+        elastic = engine.endswith("_elastic")
+        if elastic:
+            bench = harness.make_elastic(bench, [tuple(e) for e in churn])
+        final = harness.runner(engine)(
+            bench.wl, T.with_trace(bench.state, TRACE_CAP), *bench.ops)
+        store = final.s.store if elastic else final.store
+        check = bench.check(final)
+        arrays.update(trace_arrays(name, export.decode(store.trace),
+                                   store.trace))
+        docs.append({"name": name, "workload": w, "n_agents": n,
+                     "seed": seed, "engine": engine,
+                     "churn": [list(e) for e in churn],
+                     **({"trace": trace_name(n, seed, "default")}
+                        if w == "kv_serving" else {}),
+                     "summary": T.summary(store),
+                     "meta": export.trace_meta(store, label=name),
+                     "counters": harness.counters_dict(store),
+                     "events": int(check["events"]),
+                     "check_ok": bool(check["ok"]),
+                     "check_fails": int(check["check_fails"])})
+        jax.clear_caches()
+    out = {"cap": TRACE_CAP, "cells": docs}
+    if demo:
+        # repro.obs.report's demo cell, as its `--demo` runs it
+        victim, at, evt = 0, 5.0, 400.0
+        proto = faults.crash_holding_lock(P.get_protocol("srsp"), victim,
+                                          at)
+        bench = workloads.get("worksteal").build("srsp", 4, seed=3,
+                                                 proto=proto, n_chunks_max=12)
+        eb = harness.make_elastic(bench, events=[(evt, victim, "crash")])
+        fin = harness.run_batched_elastic(
+            eb.wl, T.with_trace(eb.state, TRACE_CAP), *eb.ops)
+        store = fin.s.store
+        label = "worksteal/srsp/n=4/batched_elastic+crash"
+        doc = export.chrome_trace(
+            export.decode(store.trace), n_agents=4,
+            meta=export.trace_meta(store, label=label))
+        doc = json.loads(json.dumps(doc))
+        arrays.update(trace_arrays("demo", export.decode(store.trace),
+                                   store.trace))
+        res = eb.check(fin)
+        out["demo"] = {"label": label, "doc": doc,
+                       "report": export.text_report(doc),
+                       "check_ok": bool(res["ok"]),
+                       "recovered": float(np.sum(np.asarray(
+                           store.counters.recoveries)))}
+        jax.clear_caches()
+    return out, arrays
+
+
 def golden_path(workload: str) -> pathlib.Path:
     return GOLDEN_DIR / f"{workload}.json"
 
@@ -405,6 +512,17 @@ def _provenance(workload: str) -> dict:
                                 check=True).stdout.strip()
     except (OSError, subprocess.CalledProcessError):
         commit = None
+    if workload == "trace":
+        import jax
+        return {"reference": "repro (JAX) harness.runner(engine) on "
+                             "obs.trace.with_trace(state, cap), srsp, "
+                             "CPU backend, kernel_mode ref; the demo is "
+                             "repro.obs.report's --demo cell",
+                "jax_commit": commit,
+                "prng_layout": "kv_serving traces: jax_threefry_"
+                               "partitionable=True (the installed JAX "
+                               f"{jax.__version__}'s default)",
+                "generator": "tests/test_torch_golden.py --write trace"}
     if workload == "many":
         import jax
         return {"reference": "repro (JAX) harness.runner_many(engine) on "
@@ -705,6 +823,14 @@ def test_churn_golden_regenerates_from_jax():
                                           np.asarray(getattr(t["tr"], f)))
 
 
+@pytest.mark.slow
+def test_trace_golden_regenerates_from_jax():
+    doc, arrays = trace_from_jax()
+    old_doc, old_arrays = _trace_golden()
+    assert doc == old_doc
+    assert _same_arrays(arrays, old_arrays)
+
+
 def _save_traces() -> None:
     """Every golden trace, the kv_serving cells' and the churn cells'."""
     from repro_torch.traffic import trace as TT
@@ -712,7 +838,35 @@ def _save_traces() -> None:
                                    **jax_traces(many_trace_cells())})
 
 
+def _trace_golden() -> tuple:
+    """(json doc without provenance, npz arrays) as committed."""
+    doc = json.loads(TRACE_JSON.read_text())
+    doc.pop("provenance", None)
+    with np.load(TRACE_NPZ) as z:
+        return doc, {k: z[k] for k in z.files}
+
+
+def _same_arrays(a: dict, b: dict) -> bool:
+    return sorted(a) == sorted(b) and all(
+        a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a)
+
+
+def write_trace() -> None:
+    doc, arrays = trace_from_jax()
+    if TRACE_JSON.exists() and TRACE_NPZ.exists():
+        old_doc, old_arrays = _trace_golden()
+        if old_doc == doc and _same_arrays(old_arrays, arrays):
+            print(f"{TRACE_JSON}, {TRACE_NPZ}: unchanged")
+            return
+    np.savez_compressed(TRACE_NPZ, **arrays)
+    TRACE_JSON.write_text(json.dumps({"provenance": _provenance("trace"),
+                                      **doc}, indent=1) + "\n")
+    print(f"wrote {TRACE_JSON}, {TRACE_NPZ}")
+
+
 def write(workload: str) -> None:
+    if workload == "trace":
+        return write_trace()
     path = golden_path(workload)
     doc = churn_from_jax() if workload == "churn" \
         else many_from_jax() if workload == "many" \
@@ -737,6 +891,6 @@ if __name__ == "__main__":
         sys.exit("usage: python tests/test_torch_golden.py --write "
                  "[WORKLOAD ...]")
     names = [a for a in sys.argv[1:] if a != "--write"] \
-        or sorted(CELLS) + ["churn", "many"]
+        or sorted(CELLS) + ["churn", "many", "trace"]
     for name in names:
         write(name)

@@ -39,6 +39,11 @@ def test_the_walk_sees_the_port():
             "faults.py", "prng.py", "graphs.py", "worksteal.py",
             "metrics.py", "samplers.py", "driver.py",
             "kv_serving.py", "sweep.py", "ops.py", "common.py", "cases.py",
-            "timing.py"} <= names
+            "timing.py", "trace.py", "export.py", "report.py",
+            "checkpoint.py", "fault.py"} <= names
+    rel = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {f"src/repro_torch/{m}.py" for m in (
+        "obs/trace", "obs/export", "obs/report", "runtime/checkpoint",
+        "runtime/fault")} <= rel
     assert _forbidden("repro.core") and _forbidden("jax.numpy")
     assert not _forbidden("repro_torch.core")
