@@ -48,7 +48,7 @@ Phases, each fatal on failure:
      under `lease_never_expires`) of kv_directory, reader_lock,
      producer_consumer, kv_serving (its golden trace) and worksteal at
      n=64 and at the n=4 pins, the sweep's two churned rows through
-     `sweep.run_churned_cell` (worksteal 1179.5; kv_serving 2307.369873046875
+     `sweep.measure_churned` (worksteal 1179.5; kv_serving 2307.369873046875
      on its legacy-layout trace), a zero-churn kv_directory n=64 cell
      (also equal to kv_directory's golden fused cell) and leave/join
      cells (n=64 batched, n=16 serial and batched), each held with `==`
@@ -100,7 +100,24 @@ Phases, each fatal on failure:
      (bool planes take plane_commit's plain version, as in the
      reference), the packed drain kernels must not; the child also runs
      kv_directory's traced cell, held to the same golden trace; the
-     child's failure fails the run;
+     child's failure fails the run.  Then the sweep: a child process
+     with REPRO_TRACE=1 runs `python3 -m repro_torch.workloads.sweep`
+     (its `main`) at the argv of `golden/sweep.json` (the reference's
+     schema-v8 document at sizes 4 and 8: every workload and scenario,
+     fused srsp rows, both churned rows, the serving comparison, the
+     three A/Bs, the packed-metadata one in grandchildren at
+     REPRO_NO_PACK=0 and 1), replaying the reference's kv_serving traces
+     (`golden/sweep_traces.npz`), without the untimed warm-up calls,
+     with the launch counts set to 0 first: the command's own `check_doc` must pass, every modeled
+     column must equal the golden document's (`sweep_doc.modeled`), and
+     every simulator kernel and replica instance must launch.  The same
+     child then runs a full-width slice of the default sweep
+     (`SWEEP_FULL_ARGV`: producer_consumer_mc and worksteal, srsp
+     batched and fused at n=64, worksteal's churned row, `pack_ab` at
+     64 WGs, `remote_batch_ab` and `fuse_ab` at n=64, the reference's
+     seeds and timed calls) through `sweep.run_sweep`, each row held
+     with `==` to the committed `BENCH_workloads.json` row of its label
+     in makespan, counters, check_ok, check_fails and events;
   5. per kernel at the n=64 shapes and at n=256 (`fuse_ab`'s), the
      replica instances at R = 2 and 64 of those shapes: device
      time per call of the kernel and of its plain version (CUDA graph
@@ -209,7 +226,7 @@ BOOL_CHURN = ("kv_directory n=64 seed=4 batched_elastic crash_dirty@2:60.0 "
               "crash@120.0 green",
               "kv_directory n=64 seed=4 batched_elastic crash_dirty@2:60.0 "
               "crash@120.0 red")
-# the sweep's churned rows (`sweep.run_churned_cell`) among the churn cells:
+# the sweep's churned rows (`sweep.measure_churned`) among the churn cells:
 # {which: (workload, n_agents, layout of its trace)}
 CHURNED_ROWS = {"worksteal": ("worksteal", 4, "partitionable"),
                 "kv_serving": ("kv_serving", 4, "legacy")}
@@ -219,6 +236,20 @@ BOOL_CELLS = ([(w, "srsp", N_MAIN, 4, "fused")
               + [("worksteal", "srsp", N_MAIN, 2, "fused"),
                  ("kv_serving", "srsp", N_MAIN, 4, "fused",
                   "n64_seed4_default")])
+# the sweep phase: `repro_torch.workloads.sweep` at the argv of the
+# reference's document in golden/sweep.json, on the traces of
+# golden/sweep_traces.npz
+SWEEP_GOLDEN = os.path.join(ROOT, "src", "repro_torch", "golden",
+                            "sweep.json")
+SWEEP_TRACES = os.path.join(ROOT, "src", "repro_torch", "golden",
+                            "sweep_traces.npz")
+# and a full-width slice of the default sweep, held to the committed
+# document of the reference's default run
+SWEEP_FULL_ARGV = ["--workloads", "producer_consumer_mc", "worksteal",
+                   "--scenarios", "srsp", "--sizes", "64", "--no-serving",
+                   "--pack-sizes", "64", "--remote-batch-sizes", "64",
+                   "--fuse-sizes", "64"]
+SWEEP_COMMITTED = os.path.join(ROOT, "BENCH_workloads.json")
 PHASES = []                     # (header, start) of every phase
 
 
@@ -497,7 +528,7 @@ def churn_proto(cell):
 
 
 def churned_row(cell) -> str:
-    """The `run_churned_cell` name of a cell that is one of the sweep's
+    """The `measure_churned` name of a cell that is one of the sweep's
     churned rows (green), else None."""
     return next((w for w, (wl, n, layout) in CHURNED_ROWS.items()
                  if cell["recovery"] and cell["fault"]
@@ -508,7 +539,8 @@ def churned_row(cell) -> str:
 def run_churn(names=None, launch_counters=()) -> list:
     """The cells of `golden/churn.json` (or those `names`) on the card,
     each through `sweep.run_cell` (the sweep's churned rows through
-    `sweep.run_churned_cell`) and held with `==` to its golden cell:
+    `sweep.measure_churned`, one run) and held with `==` to its golden
+    cell:
     counters, events, check verdict and failures, done / completed /
     offered, recoveries and the final alive mask.  Each cell runs once,
     with no warm-up (the kernels are built and loaded by then).  Logs
@@ -542,13 +574,15 @@ def run_churn(names=None, launch_counters=()) -> list:
             passes[0] = 0
             which = churned_row(cell)
             if which:
-                r = sweep.run_churned_cell(which, "cuda", trace=tr,
-                                           warmup=False)
+                r = sweep.measure_churned(
+                    which, 1, "cuda", sweep.trace_map(
+                        [traces[cell["trace"]]] if tr is not None else []),
+                    warmup=False)
                 row = {"counters": r["counters"], "check_ok": r["check_ok"],
                        "check_fails": r["lost_updates"],
                        "completed": r["completed"],
                        "recovered": r["recovered"], "steady_s":
-                       r["steady_s"]}
+                       r["steady_s_per_run"]}
                 got = {k: row[k] for k in ("counters", "check_ok",
                                            "check_fails", "completed")}
                 got["recoveries"] = row["recovered"]
@@ -573,7 +607,7 @@ def run_churn(names=None, launch_counters=()) -> list:
             if not all(launches.get(k, 1) for k in ("drain_writeback",
                                                     "plane_commit")):
                 raise AssertionError(f"{cell['name']}: launches {launches}")
-            rec = {"cell": cell["name"], "via": "run_churned_cell"
+            rec = {"cell": cell["name"], "via": "measure_churned"
                    if which else "run_cell",
                    "makespan": row["counters"]["makespan"],
                    "check_ok": row["check_ok"],
@@ -1164,6 +1198,88 @@ def trace_replicas(torch, launch_counters, untraced_launches: dict) -> dict:
             **{k: row[k] for k in ("latency_p50", "latency_p95",
                                    "latency_p99", "latency_turns",
                                    "trace_events", "trace_dropped")}}
+
+
+def sweep_child(SF, FT) -> int:
+    """The sweep phase in a child process started with REPRO_TRACE=1 (so
+    that the process that traces with torch.profiler never runs the
+    replica engines): `python3 -m repro_torch.workloads.sweep` as its
+    `main` at golden/sweep.json's argv, on the card, replaying the
+    reference's kv_serving traces, without the untimed warm-up calls
+    (they hold no modeled column; `-m cuda -k sweep` runs them), with the
+    launch counts set to 0 just before and read just after; its own
+    `check_doc` (traced) must pass and every modeled column
+    (`sweep_doc.modeled`) must equal the golden document's.  Then
+    `SWEEP_FULL_ARGV` through `sweep.run_sweep` (no warm-ups, counted
+    too), every row `==` the committed document's row of its label in
+    `sweep_doc.ROW_COLUMNS`.  One JSON line last."""
+    import tempfile
+    from repro_torch.obs import trace as TL
+    from repro_torch.workloads import sweep, sweep_doc
+    if not TL.TRACE:
+        raise AssertionError("the sweep child needs REPRO_TRACE=1")
+    with open(SWEEP_GOLDEN) as f:
+        golden = json.load(f)
+    argv = golden.pop("provenance")["argv"]
+    counters = (SF.drain_writeback, SF.drain_writeback_many,
+                FT.plane_commit, FT.plane_commit_many, FT.trip_plan,
+                FT.trip_plan_many)
+    traces = sweep.reference_traces(SWEEP_TRACES, "cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "sweep.json")
+        t0 = time.perf_counter()
+        rc, launches = counted(counters, lambda: sweep.main(
+            argv + ["--out", out, "--trace-out",
+                    os.path.join(tmp, "trace.json")], traces,
+            warmup=False))
+        wall = time.perf_counter() - t0
+        with open(out) as f:
+            doc = json.load(f)
+    if rc != 0:
+        raise AssertionError(f"the sweep exited {rc}: check_doc failed")
+    diff = sweep_doc.diff_modeled(doc, golden)
+    if diff:
+        raise AssertionError(f"the sweep's document differs from "
+                             f"golden/sweep.json in {len(diff)} modeled "
+                             f"columns: {diff[:20]}")
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel never launched in the sweep: "
+                             f"{launches}")
+    rows = doc["runs"] + doc["serving"]
+    log(f"    {len(rows)} rows, {len(doc['comparisons'])} comparisons == "
+        f"golden/sweep.json in every modeled column; check_doc passed "
+        f"(traced); {wall:.1f} s; kernel_mode {doc['kernel_mode']}")
+
+    with open(SWEEP_COMMITTED) as f:
+        committed = json.load(f)
+    t0 = time.perf_counter()
+    full, full_launches = counted(counters, lambda: sweep.run_sweep(
+        sweep.parser().parse_args(SWEEP_FULL_ARGV), warmup=False))
+    full_wall = time.perf_counter() - t0
+    diff = sweep_doc.diff_modeled(full, committed,
+                                  columns=sweep_doc.ROW_COLUMNS)
+    if diff:
+        raise AssertionError(f"the full-width slice differs from "
+                             f"BENCH_workloads.json: {diff[:20]}")
+    for name, n in full_launches.items():
+        launches[name] += n
+    held = sum(len(full[sec]) for sec in sweep_doc.LABELED)
+    log(f"    full width ({' '.join(SWEEP_FULL_ARGV)}): {held} rows == "
+        f"BENCH_workloads.json in {', '.join(sweep_doc.ROW_COLUMNS)}; "
+        f"{full_wall:.1f} s; launches {full_launches}")
+    print(json.dumps({"wall_s": wall, "full_wall_s": full_wall,
+                      "launches": launches,
+                      "rows": [{k: r[k] for k in (
+                          "workload", "scenario", "n_agents", "engine",
+                          "compile_s", "steady_s_per_run", "bench_wall_s")
+                          if k in r} for r in rows],
+                      "full_rows": [{k: r[k] for k in (
+                          "workload", "scenario", "n_agents", "engine",
+                          "steady_s_per_run") if k in r}
+                          for sec in sweep_doc.LABELED for r in full[sec]],
+                      "pack_ab": doc["pack_ab"] + full["pack_ab"],
+                      "comparisons": len(doc["comparisons"])}))
+    return 0
 
 
 def run_child(flag: str, tag: str, env=None) -> dict:
@@ -1790,6 +1906,8 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--replica-child", action="store_true",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--sweep-child", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1816,6 +1934,8 @@ def main(argv=None) -> int:
         return bool_layout_child(torch, SF, FT)
     if args.replica_child:
         return replica_child(torch, SF, FT)
+    if args.sweep_child:
+        return sweep_child(SF, FT)
     t_start = time.perf_counter()
 
     smi = nvidia_smi()
@@ -1896,6 +2016,14 @@ def main(argv=None) -> int:
                          dict(os.environ, REPRO_NO_PACK="1"))
     for name in ("drain_writeback_bool", "drain_writeback_bool_many"):
         launches[name] = bool_run["launches"][name]
+    phase(t_start, "[4] the sweep: python3 -m repro_torch.workloads.sweep "
+                   "at golden/sweep.json's argv, then a full-width slice, "
+                   "traced, in a child process")
+    sweep_run = run_child("--sweep-child", "sweep",
+                          dict(os.environ, REPRO_TRACE="1",
+                               REPRO_TRACE_CAP="4096"))
+    for name, n in sweep_run["launches"].items():
+        launches[name] += n
 
     phase(t_start, "[5] kernel times at the n=64 shapes and the serving "
                    "shapes")
@@ -1946,7 +2074,7 @@ def main(argv=None) -> int:
                                  "replica": replica["traced"],
                                  "bool": bool_run["traced"]},
                        "remote_batches": batches,
-                       "bool_layout": bool_run,
+                       "bool_layout": bool_run, "sweep": sweep_run,
                        "kernels": kernels, "profile": prof,
                        "serve": serve, "delta_sync": sync_recs,
                        "total_s": total_s,

@@ -13,7 +13,7 @@ JAX (the live JAX comparisons are in test_torch_churn_b.py to _e.py).
   kv_directory golden cell, red and green where they should be);
 * the kv_serving n=4 seed 3 pair on the JAX trace, pinned to what the
   reference outputs;
-* `sweep.run_churned_cell` gives the committed sweep's two churn rows.
+* `sweep.measure_churned` gives the committed sweep's two churn rows.
 
 Every comparison is `==`, under `torch.use_deterministic_algorithms`.
 """
@@ -203,15 +203,17 @@ def test_kv_serving_crash_pair_pinned_to_the_reference(layout, green):
 
 
 def test_run_churned_cell_gives_the_sweep_rows():
-    ws = sweep.run_churned_cell("worksteal", "cpu")
+    """`sweep.measure_churned` gives the committed sweep's two churned
+    rows (kv_serving on the legacy-layout trace the committed row drew)."""
+    ws = sweep.measure_churned("worksteal", 1, "cpu")
     assert (ws["makespan"], ws["recovered"], ws["lost_updates"],
             ws["completed"], ws["check_ok"]) == (1179.5, 1.0, 0, None, True)
-    tr, _ = _traces()["n4_seed3_ppa1_legacy"]
-    kv = sweep.run_churned_cell("kv_serving", "cpu", trace=tr)
+    traces = sweep.trace_map([_traces()["n4_seed3_ppa1_legacy"]])
+    kv = sweep.measure_churned("kv_serving", 1, "cpu", traces)
     assert (kv["makespan"], kv["recovered"], kv["lost_updates"],
             kv["completed"], kv["check_ok"]) \
         == (2307.369873046875, 1.0, 0, 73, True)
-    assert ws["steady_s"] > 0 and kv["steady_s"] > 0
+    assert ws["steady_s_per_run"] > 0 and kv["steady_s_per_run"] > 0
 
 
 def test_crash_recovery_serial_is_batched():

@@ -26,7 +26,7 @@ from repro_torch.kernels.rmsnorm import ops as RN  # noqa: E402
 from repro_torch.kernels.selective_flush import ops as SF  # noqa: E402
 from repro_torch.kernels import timing  # noqa: E402
 from repro_torch.kernels.topk_router import ops as TR  # noqa: E402
-from repro_torch.workloads import sweep  # noqa: E402
+from repro_torch.workloads import sweep, sweep_doc  # noqa: E402
 
 GOLDEN = pathlib.Path(P.__file__).resolve().parents[1] / "golden"
 
@@ -752,3 +752,27 @@ def _traced_replica_run(cuda):
     cpu = harness.run_fused_many(bc.wl, stc, *bc.ops)
     for a, c in zip(convert.leaves(fin), convert.leaves(cpu)):
         assert a.dtype == c.dtype and torch.equal(a.cpu(), c)
+
+
+@pytest.mark.cuda
+def test_sweep_golden_on_card(cuda, tmp_path):
+    """`python3 -m repro_torch.workloads.sweep`'s `main` at
+    `golden/sweep.json`'s argv on the card, traced, on the reference's
+    kv_serving traces, in a child process: its `check_doc` passes and
+    every modeled column equals the reference's document's."""
+    _in_child("_sweep_golden", str(tmp_path))
+
+
+def _sweep_golden(cuda, tmp):
+    from repro_torch.obs import trace as TL
+    TL.TRACE, TL.DEFAULT_CAP = True, 4096
+    golden = json.loads((GOLDEN / "sweep.json").read_text())
+    argv = golden.pop("provenance")["argv"]
+    out = pathlib.Path(tmp) / "sweep.json"
+    traces = sweep.reference_traces(str(GOLDEN / "sweep_traces.npz"), cuda)
+    assert sweep.main(argv + ["--out", str(out), "--trace-out",
+                              str(pathlib.Path(tmp) / "trace.json")],
+                      traces) == 0
+    doc = json.loads(out.read_text())
+    assert doc["kernel_mode"] == "cuda" and doc["backend"] == "cuda"
+    assert sweep_doc.diff_modeled(doc, golden) == []

@@ -242,9 +242,12 @@ def test_sweep_replica_cell_and_ab_pairs():
                           device="cpu")
     assert (row["makespan"], row["counters"], row["events"]) \
         == (solo["makespan"], solo["counters"], solo["events"])
-    fuse = sweep.run_fuse_ab(N, SEEDS, "cpu")
+    fuse = [sweep.measure_fuse(N, 2, 1, engine, "cpu", warmup=False)
+            for engine in ("fused", "batched")]
     assert [r["engine"] for r in fuse] == ["fused", "batched"]
-    ab = sweep.run_remote_batch_ab(N, SEEDS, "cpu")
+    assert fuse[0]["makespan"] == fuse[1]["makespan"]
+    ab = [sweep.measure_remote_batch(N, 2, 1, batched, "cpu", warmup=False)
+          for batched in (True, False)]
     assert [r["remote_batch"] for r in ab] == [True, False]
     assert ab[0]["makespan"] == ab[1]["makespan"]
     with pytest.raises(ValueError, match="not vmappable"):

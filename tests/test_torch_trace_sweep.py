@@ -1,6 +1,6 @@
 """The sweep's latency and trace columns (`repro.workloads.sweep`'s
 `_latency_cols` and `_request_latency`) in the port's rows, on the CPU:
-`run_cell`, `run_vmapped_cell` (lane 0's store) and `run_churned_cell`
+`run_cell`, `run_vmapped_cell` (lane 0's store) and `measure_churned`
 traced give the golden summary of the same cell, kv_serving rows report
 the per-request latencies (`latency_source == "requests"`) traced or
 not, and untraced rows give None/0; the command exports a traced row
@@ -98,7 +98,7 @@ def test_vmapped_cell_columns_are_lane_0s(traced):
 
 def test_churned_row_columns_are_the_demos(traced):
     """The sweep's churned worksteal row is the report demo's cell."""
-    row = sweep.run_churned_cell("worksteal", device="cpu", warmup=False)
+    row = sweep.measure_churned("worksteal", 1, device="cpu", warmup=False)
     want = DOC["demo"]["doc"]["srsp"]["turn_latency"]
     assert _cols(row) == (_turns(want) if traced else UNTRACED)
     assert row["recovered"] == 1.0 and row["check_ok"]
