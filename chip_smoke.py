@@ -21,8 +21,9 @@ Phases, each fatal on failure:
      every launch count set to 0 first, held bitwise (every counter,
      `events`, `check_ok`, `check_fails`) against the JAX reference's
      golden files (`src/repro_torch/golden/<workload>.json`):
-     kv_directory n=64 srsp/rsp/baseline on the fused engine at seeds 0
-     and 4, n=64 srsp on the serial and batched engines, n=256 srsp
+     kv_directory n=64 srsp/rsp/baseline on the fused engine at seed 4
+     (seed 0 was cut for phase 9's time), n=64 srsp on the serial and
+     batched engines, n=256 srsp
      fused; reader_lock, producer_consumer and producer_consumer_mc at
      n=64 srsp/rsp/baseline fused, srsp batched, and n=16 srsp serial,
      rsp/baseline fused and the scope_only staleness demo (check red);
@@ -53,12 +54,14 @@ Phases, each fatal on failure:
      (also equal to kv_directory's golden fused cell) and leave/join
      cells (n=64 batched, n=16 serial and batched), each held with `==`
      (counters, check, done/completed/offered, recoveries, the final
-     alive mask), with its `steady_s`, loop passes and drain_writeback /
+     alive mask; kv_serving's n=64 red control, `CHURN_SKIPPED`, was cut
+     for phase 9's time), with its `steady_s`, loop passes and drain_writeback /
      plane_commit launches per run logged (zeroed before each cell).
      Then the trace ring (`obs.trace`): the n=64 srsp fused cell of each
      of the six workloads (worksteal at seed 2) run untraced and with
-     `trace.with_trace` at TRACE_CAP slots, each timed (kv_directory and
-     kv_serving alternate the two TRACE_REPEATS times): each traced run's
+     `trace.with_trace` at TRACE_CAP slots, each timed once (the three
+     alternated repeats of kv_directory and kv_serving were cut for phase
+     9's time): each traced run's
      non-trace leaves bitwise the untraced run's, its counters the
      golden cell's, its decoded events, head (so dropped: kv_serving's
      ring wraps), op_hist and turn_hist `==` `golden/trace.npz`, and
@@ -114,7 +117,8 @@ Phases, each fatal on failure:
      child then runs a full-width slice of the default sweep
      (`SWEEP_FULL_ARGV`: producer_consumer_mc and worksteal, srsp
      batched and fused at n=64, worksteal's churned row, `pack_ab` at
-     64 WGs, `remote_batch_ab` and `fuse_ab` at n=64, the reference's
+     64 WGs and `remote_batch_ab` at n=64 (`fuse_ab` at n=64 was cut
+     for phase 9's time), the reference's
      seeds and timed calls) through `sweep.run_sweep`, each row held
      with `==` to the committed `BENCH_workloads.json` row of its label
      in makespan, counters, check_ok, check_fails and events;
@@ -130,9 +134,11 @@ Phases, each fatal on failure:
      their replica instances, and for rmsnorm and topk_router at their
      decode and prefill shapes;
   6. the device's busy time and idle share over one fused n=64 srsp run
-     of kv_directory, producer_consumer_mc and worksteal, and the device
-     operations one traced `record_op` and one `record_turn` add
-     (torch.profiler);
+     of kv_directory (the other workloads' profiles were cut to make room
+     for phase 9), traced with CUDA activity alone (operator records
+     would make the trace slow to collect), and the device operations
+     one traced `record_op` and
+     one `record_turn` add (torch.profiler);
   7. the serving path of granite-moe-1b-a400m (`repro_torch.serve`):
      (1) the golden config (full width, 2 layers, float32, numpy
      weights) teacher-forced on `golden/granite_moe_serve.json`'s tokens,
@@ -160,7 +166,39 @@ Phases, each fatal on failure:
      1e-5, int8 within half a quantization step more); then per bank the
      bytes ratio, the sync's wall ms per mode (median of 5), and the
      flush kernel's device time at that bank's shape beside its bound,
-     its plain version and `torch.index_select`, bitwise checked.
+     its plain version and `torch.index_select`, bitwise checked;
+  9. training granite-moe-1b-a400m (`repro_torch.train`), in a child
+     process with PyTorch's deterministic algorithms on
+     (`trainer.deterministic`): (1) one full-width block, dense and MoE,
+     float32, through torch.autograd, every gradient (parameters and
+     input) within GRAD_CHECK_TOL of relative norm of the same block
+     with every kernel swapped for its plain version, and one lm_loss
+     step of the full 24-layer bf16 model with a finite, nonzero
+     gradient in every parameter leaf; (2) the golden run (full width, 2
+     layers, float32, numpy weights, 3 AdamW steps of 2 x 64 tokens in
+     microbatches of 1) on the golden's batches, loss, aux, gnorm and
+     every leaf's norm within `train.golden.TOL` of
+     `golden/granite_moe_train.json` (the JAX package's run); (3) the
+     full run through `Trainer`: 24 layers, bf16, batch 8 x 256 in
+     microbatches of 4, AdamW, remat full, 1 warm-up and 4 timed steps
+     with the training kernels' launch counts set to 0 just before and
+     read just after (the kernels line's `launches` of the training
+     kernels), finite losses, step ms (median), tokens/s, peak memory,
+     launches a step, then one step under torch.profiler (device busy
+     time, idle share), then two runs of the same 2 steps, bitwise equal
+     in loss and parameters; (4) `Trainer` at the golden size with a
+     checkpoint every 2 steps and a failure at step 2: one restart, and
+     the final parameters bitwise the uninterrupted run's.
+
+Phases 3 and 5 cover the training kernels too (`flash_attention`'s
+training instance `flash_attention_lse`, and `flash_attention_bwd`,
+`rmsnorm_bwd`, `topk_router_bwd`): phase 3 holds them to their plain
+versions on `cases.TRAIN_ATTN_CASES`, `RMS_BWD_CASES` and
+`ROUTER_BWD_CASES` (S 1-300, GQA groups 1, 2, 8, D 16 and 64, bf16 and
+float32; one rmsnorm row, odd widths; router k = 1, k = E, ties); phase
+5 times them at the full run's microbatch shapes beside their bound, the
+plain versions and the backward of scaled_dot_product_attention and of
+F.rms_norm.
 
 Phases 3 and 5 cover the serving kernels too (rmsnorm, flash_attention,
 flash_decode, topk_router): phase 3 holds them to their plain versions
@@ -188,7 +226,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -206,7 +246,7 @@ T = None                        # repro_torch.kernels.timing, set by main
 # lock and queue workloads, worksteal and kv_serving run every cell of
 # their golden files, a kv_serving cell replaying the request trace the
 # reference generated for it (`trace`, in golden/kv_serving_traces.npz)
-KV_CELLS = ([("kv_directory", s, N_MAIN, seed, "fused") for seed in (0, 4)
+KV_CELLS = ([("kv_directory", s, N_MAIN, 4, "fused")
              for s in ("srsp", "rsp", "baseline")]
             + [("kv_directory", "srsp", N_MAIN, 4, "serial"),
                ("kv_directory", "srsp", N_MAIN, 4, "batched"),
@@ -216,11 +256,15 @@ GOLDEN_WORKLOADS = LOCK_QUEUE + ("worksteal", "kv_serving")
 TRACES = os.path.join(ROOT, "src", "repro_torch", "golden",
                       "kv_serving_traces.npz")
 # phase 6's cells, (workload, seed): the profiler's cost grows with a
-# run's kernel records, so reader_lock, producer_consumer and
-# kv_serving, the runs with the most, stay out and the run keeps within
-# half its time limit
-PROFILED = (("kv_directory", 4), ("producer_consumer_mc", 4),
-            ("worksteal", 2))
+# run's kernel records, so only kv_directory is profiled (the other two
+# cells took 65.6 s of the 1200 s limit that the training phase needs;
+# PERF.md §6 gives each depth cut's seconds)
+PROFILED = (("kv_directory", 4),)
+# the churn cell phase 4 leaves out: kv_serving's n=64 red control, the
+# slowest cell of the run (47.2 s of steady time on a slow host); its
+# n=4 pin stays red on both trace layouts (cut for phase 9's time)
+CHURN_SKIPPED = ("kv_serving n=64 seed=4 batched_elastic "
+                 "crash_holding_lock@0:30.0 crash@180.0 red",)
 # the churn cells the bool-layout child runs (names in golden/churn.json)
 BOOL_CHURN = ("kv_directory n=64 seed=4 batched_elastic crash_dirty@2:60.0 "
               "crash@120.0 green",
@@ -244,12 +288,34 @@ SWEEP_GOLDEN = os.path.join(ROOT, "src", "repro_torch", "golden",
 SWEEP_TRACES = os.path.join(ROOT, "src", "repro_torch", "golden",
                             "sweep_traces.npz")
 # and a full-width slice of the default sweep, held to the committed
-# document of the reference's default run
+# document of the reference's default run, with `pack_ab` and
+# `remote_batch_ab` at 64 (`fuse_ab` at 64, 39.1 s of steady time on a
+# slow host, was cut for phase 9's time; the golden argv still holds it
+# at its sizes)
 SWEEP_FULL_ARGV = ["--workloads", "producer_consumer_mc", "worksteal",
                    "--scenarios", "srsp", "--sizes", "64", "--no-serving",
                    "--pack-sizes", "64", "--remote-batch-sizes", "64",
-                   "--fuse-sizes", "64"]
+                   "--no-fuse-ab"]
 SWEEP_COMMITTED = os.path.join(ROOT, "BENCH_workloads.json")
+# phase 9, training granite-moe-1b-a400m: the full run's shape (24
+# layers, bf16, remat full, AdamW) and the block of the gradient check
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 8, 256, 4
+TRAIN_STEPS = 5                 # 1 warm-up step, then 4 timed
+GRAD_CHECK_SHAPE = (2, 128)     # (B, S) of the one-block gradient check
+GRAD_CHECK_TOL = 1e-4           # float32, relative norm of a leaf's error
+# the training kernels' wrappers by name, and the TPU kernel each stands
+# beside (the backward kernels replace none: the reference differentiates
+# its jnp forms)
+TRAIN_KERNELS = ("flash_attention_lse", "flash_attention_bwd",
+                 "rmsnorm_bwd", "topk_router_bwd")
+TRAIN_REPLACES = {
+    "flash_attention_lse": "src/repro/kernels/flash_attention/kernel.py:72",
+    "flash_attention_bwd": "backward; no TPU kernel (the reference "
+                           "differentiates its jnp forms)",
+    "rmsnorm_bwd": "backward; no TPU kernel (the reference differentiates "
+                   "its jnp forms)",
+    "topk_router_bwd": "backward; no TPU kernel (the reference "
+                       "differentiates its jnp forms)"}
 PHASES = []                     # (header, start) of every phase
 
 
@@ -537,7 +603,8 @@ def churned_row(cell) -> str:
 
 
 def run_churn(names=None, launch_counters=()) -> list:
-    """The cells of `golden/churn.json` (or those `names`) on the card,
+    """The cells of `golden/churn.json` but CHURN_SKIPPED (or those
+    `names`) on the card,
     each through `sweep.run_cell` (the sweep's churned rows through
     `sweep.measure_churned`, one run) and held with `==` to its golden
     cell:
@@ -552,7 +619,8 @@ def run_churn(names=None, launch_counters=()) -> list:
     Raises on any difference."""
     from repro_torch.workloads import harness, sweep
     cells = [c for c in load_golden("churn")["cells"]
-             if names is None or c["name"] in names]
+             if (c["name"] in names if names is not None
+                 else c["name"] not in CHURN_SKIPPED)]
     traces = load_traces()
     passes = [0]
     trip = harness._elastic_trip
@@ -690,7 +758,7 @@ def trace_bench(workload: str, seed: int, traces: dict, golden: dict):
 # the cells whose traced and untraced runs alternate TRACE_REPEATS times
 # (untraced first, then traced first, ...), their `steady_s` the medians
 TRACE_TIMED = ("kv_directory", "kv_serving")
-TRACE_REPEATS = 3
+TRACE_REPEATS = 1               # a depth dial: ~23 s a repeat (PERF.md §6)
 
 
 def trace_cells(torch, launch_counters, names=None) -> list:
@@ -1282,13 +1350,13 @@ def sweep_child(SF, FT) -> int:
     return 0
 
 
-def run_child(flag: str, tag: str, env=None) -> dict:
+def run_child(flag: str, tag: str, env=None, timeout=600) -> dict:
     """This script in a child process with `flag`: its log lines are
     echoed under `[tag]` and its last line's JSON returned; a nonzero
     exit fails the run."""
     out = subprocess.run([sys.executable, os.path.abspath(__file__), flag],
                          env=env, capture_output=True, text=True,
-                         timeout=600)
+                         timeout=timeout)
     lines = out.stdout.strip().splitlines()
     for line in lines[:-1]:
         log(f"  [{tag}] {line.strip()}")
@@ -1560,10 +1628,11 @@ def check_one_op(calls) -> None:
 
 def device_busy(torch, fn) -> tuple:
     """(device busy seconds, CUDA kernel records) of one call of `fn`
-    under torch.profiler (`T.trace`), from its CUDA kernel records.
-    Raises when the profiler recorded no device time."""
+    under torch.profiler (`T.trace`, CUDA activity only), from its CUDA
+    kernel records.  Raises when the profiler recorded no device time."""
     from torch.autograd import DeviceType
-    kernels = [e for e in T.trace(fn) if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in T.trace(fn, cpu=False)
+               if e.device_type == DeviceType.CUDA]
     busy_s = sum(_dev_us(e) for e in kernels) / 1e6
     if not busy_s:
         raise AssertionError("torch.profiler recorded no device time: the "
@@ -1898,6 +1967,446 @@ def delta_sync_path(torch, SF) -> tuple:
     return recs, entry
 
 
+def check_training_kernels(torch, C, FA, RN, TR) -> dict:
+    """Phase 3, the training kernels: the forward's training instance
+    (`flash_attention_lse`) and the three backward kernels, each against
+    its plain version on the card on `cases.TRAIN_ATTN_CASES`,
+    `RMS_BWD_CASES` and `ROUTER_BWD_CASES` (`C.check_attn_train`,
+    `check_rms_bwd`, `check_router_bwd`).  Returns the largest absolute
+    error per kernel."""
+    dev = torch.device("cuda")
+    errs = dict.fromkeys(TRAIN_KERNELS, 0.0)
+    for k, case in enumerate(C.TRAIN_ATTN_CASES):
+        fwd, bwd = C.check_attn_train(FA, k, dev)
+        errs["flash_attention_lse"] = max(errs["flash_attention_lse"], fwd)
+        errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], bwd)
+        log(f"  flash_attention_lse / _bwd {case[0]}: abs err {fwd:.3g} / "
+            f"{bwd:.3g}")
+    for k, case in enumerate(C.RMS_BWD_CASES):
+        e = C.check_rms_bwd(RN, k, dev)
+        errs["rmsnorm_bwd"] = max(errs["rmsnorm_bwd"], e)
+        log(f"  rmsnorm_bwd {case[0]}: abs err {e:.3g}")
+    for k, case in enumerate(C.ROUTER_BWD_CASES):
+        e = C.check_router_bwd(TR, k, dev)
+        errs["topk_router_bwd"] = max(errs["topk_router_bwd"], e)
+        log(f"  topk_router_bwd {case[0]}: abs err {e:.3g}")
+    return errs
+
+
+def measure_training(torch, C, FA, RN, TR, errs) -> list:
+    """Phase 5, the training kernels at the shapes of phase 9's full run
+    (a microbatch of 4 x 256 tokens, bf16): device time per call of the
+    kernel, of its plain version and of one PyTorch call of the same
+    function (the backward through scaled_dot_product_attention and the
+    backward of F.rms_norm, each the time of forward and backward less
+    the forward's, both captured whole: autograd runs a backward on its
+    forward's stream; none for the router), beside the bound: the
+    bytes each input is read once and each output written once, or the
+    flops (the backward's 2.5 times the forward's causal matmul flops).
+    `launches` is filled from phase 9."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    b, hq, hkv, s, d = TRAIN_MICRO, 16, 8, TRAIN_SEQ, 64
+    rows, dm, e, k = TRAIN_MICRO * TRAIN_SEQ, 1024, 32, 8
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def randn(*shape, dtype=bf):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    q, kk, v = randn(b, hq, s, d), randn(b, hkv, s, d), randn(b, hkv, s, d)
+    do = randn(b, hq, s, d)
+    o, lse = FA.flash_attention_lse(q, kk, v)
+    fwd_flops = 4 * d * b * hq * s * (s + 1) / 2
+    qkv_bytes = 2 * d * s * b * (2 * hq + 2 * hkv)      # q, k, v in; o out
+
+    def sdpa(backward):
+        ts = [t.detach().requires_grad_(backward) for t in (q, kk, v)]
+        out = F.scaled_dot_product_attention(*ts, is_causal=True,
+                                             enable_gqa=True)
+        if backward:
+            torch.autograd.grad(out, ts, do)
+
+    x = randn(rows, dm)
+    w = torch.rand(dm, generator=gen, device=dev) + 0.5
+    dy = randn(rows, dm)
+    w_bf = w.to(bf)             # F.rms_norm takes the weight in x's type
+
+    def rms(backward):
+        xr, wr = (t.detach().requires_grad_(backward) for t in (x, w_bf))
+        out = F.rms_norm(xr, (dm,), wr, 1e-6)
+        if backward:
+            torch.autograd.grad(out, (xr, wr), dy)
+
+    def backward_only(fwd_bwd):
+        return lambda: T.device_ms(lambda: fwd_bwd(True)) \
+            - T.device_ms(lambda: fwd_bwd(False))
+    logits = C.to_torch(C.router_inputs(9, rows, e)).to(dev)
+    rw, ridx = TR.topk_router(logits, k)
+    rdw = randn(rows, k, dtype=torch.float32)
+    shape_attn = f"q [{b},{hq},{s},{d}] k/v [{b},{hkv},{s},{d}] bf16 causal"
+    calls = [
+        ("flash_attention_lse", "flash_attention", shape_attn,
+         lambda: FA.flash_attention_lse(q, kk, v),
+         lambda: FA.flash_attention_lse_ref(q, kk, v),
+         lambda: T.device_ms(lambda: sdpa(False)),
+         qkv_bytes + 4 * b * hq * s, fwd_flops, BF16_FLOPS),
+        ("flash_attention_bwd", "flash_attention_bwd", shape_attn,
+         lambda: FA.flash_attention_bwd(q, kk, v, o, do, lse),
+         lambda: FA.flash_attention_bwd_ref(q, kk, v, o, do, lse),
+         backward_only(sdpa),
+         # q, k, v, o, dO and lse in; dQ, dK, dV out
+         2 * d * s * b * (4 * hq + 4 * hkv) + 4 * b * hq * s,
+         2.5 * fwd_flops, BF16_FLOPS),
+        ("rmsnorm_bwd", "rmsnorm_bwd", f"x/dy [{rows},{dm}] bf16, w f32",
+         lambda: RN.rmsnorm_bwd(x, w, dy),
+         lambda: RN.rmsnorm_bwd_ref(x, w, dy),
+         backward_only(rms),
+         3 * 2 * rows * dm + 8 * dm, 10 * rows * dm, OPS_PER_S),
+        ("topk_router_bwd", "topk_router_bwd",
+         f"w/idx/dw [{rows},{k}] -> dlogits [{rows},{e}] f32",
+         lambda: TR.topk_router_bwd(rw, ridx, rdw, e),
+         lambda: TR.topk_router_bwd_ref(rw, ridx, rdw, e),
+         None, 12 * rows * k + 4 * rows * e, rows * (3 * k + e), OPS_PER_S)]
+    out = []
+    for name, src, shape, fn, plain, library, nbytes, flops, rate in calls:
+        b_ms, b_by = bound(nbytes, flops, rate)
+        rec = {"name": name, "route": "cuda",
+               "source": f"src/repro_torch/csrc/{src}.cu",
+               "replaces": TRAIN_REPLACES[name], "launches": None,
+               "max_abs_err": errs[name], "ms": T.device_ms(fn),
+               "plain_ms": T.device_ms(plain), "bound_ms": b_ms,
+               "bound_by": b_by,
+               "library_ms": library() if library else None,
+               "shape": shape, "eager_ms": T.eager_ms(fn)}
+        if library is None:
+            rec["library_note"] = "no one PyTorch call computes it"
+        lib = "none" if rec["library_ms"] is None \
+            else f"{rec['library_ms']:.5f}"
+        log(f"  {name} {shape}: {rec['ms']:.5f} ms/call (plain "
+            f"{rec['plain_ms']:.5f}, library {lib}), eager "
+            f"{rec['eager_ms']:.5f} ms, bound {b_ms:.7f} ms ({b_by})")
+        out.append(rec)
+    return out
+
+
+def train_wrappers():
+    """{name: wrapper} of every kernel a training step launches: the
+    serving kernels' forwards (attention through its training instance)
+    and the three backward kernels."""
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.rmsnorm import ops as RN
+    from repro_torch.kernels.topk_router import ops as TR
+    return {"rmsnorm": RN.rmsnorm, "flash_attention": FA.flash_attention,
+            "topk_router": TR.topk_router,
+            "flash_attention_lse": FA.flash_attention_lse,
+            "flash_attention_bwd": FA.flash_attention_bwd,
+            "rmsnorm_bwd": RN.rmsnorm_bwd,
+            "topk_router_bwd": TR.topk_router_bwd}
+
+
+def grad_check(torch) -> dict:
+    """Phase 9 (1): one full-width granite block, dense and MoE, in
+    float32 through torch.autograd on the card, against the same block
+    with every kernel swapped for its plain version (the layers'
+    `rmsnorm` and `blockwise_attention` and the MoE's router patched to
+    `rmsnorm_ref`, `flash_attention_ref` and `topk_router_ref`, which
+    torch.autograd differentiates): every gradient leaf, and the input's,
+    within GRAD_CHECK_TOL of relative norm.  The kernel run must launch
+    every training kernel of the block, the plain run none."""
+    import dataclasses
+
+    from repro_torch.configs import granite_moe_1b
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.rmsnorm import ops as RN
+    from repro_torch.kernels.topk_router import ops as TR
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as TM
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(granite_moe_1b.CONFIG, dtype="float32")
+    b, s = GRAD_CHECK_SHAPE
+    plain = {(L, "rmsnorm"): lambda x, w, eps=1e-6: RN.rmsnorm_ref(x, w, eps),
+             (L, "blockwise_attention"):
+                 lambda q, k, v, scale=None: FA.flash_attention_ref(
+                     q, k, v, scale=scale),
+             (M, "topk_router"): TR.topk_router_ref}
+    out = {}
+    for kind in ("dense", "moe"):
+        gen = torch.Generator(device=dev).manual_seed(11)
+        p = TM.block_init(gen, cfg, kind)
+        h = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+        r = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+        pos = torch.arange(s, device=dev).expand(b, s)
+        live = TM.tree_map(lambda x: x.detach().requires_grad_(True), p)
+        leaves = [x for _, x in _named_leaves(live)]
+        hh = h.requires_grad_(True)
+
+        def grads():
+            y, aux = TM.block_train(live, cfg, kind, hh, pos)
+            return torch.autograd.grad((y * r).sum() + aux, leaves + [hh])
+        wrappers = train_wrappers()
+        for fn in wrappers.values():
+            fn.launches = 0
+        got = grads()
+        torch.cuda.synchronize()
+        launched = {n: fn.launches for n, fn in wrappers.items()}
+        saved = {key: getattr(*key) for key in plain}
+        try:
+            for (mod, name), fn in plain.items():
+                setattr(mod, name, fn)
+            want = grads()
+            torch.cuda.synchronize()
+        finally:
+            for (mod, name), fn in saved.items():
+                setattr(mod, name, fn)
+        plain_launched = sum(fn.launches for fn in wrappers.values()) \
+            - sum(launched.values())
+        need = ["rmsnorm", "flash_attention_lse", "flash_attention_bwd",
+                "rmsnorm_bwd"] + (["topk_router", "topk_router_bwd"]
+                                  if kind == "moe" else [])
+        if any(not launched[n] for n in need) or plain_launched:
+            raise AssertionError(f"grad check {kind}: kernel launches "
+                                 f"{launched}, plain run {plain_launched}")
+        rel = [float((g - w).norm() / w.norm().clamp(min=1e-30))
+               for g, w in zip(got, want)]
+        out[kind] = {"max_rel_err": max(rel), "leaves": len(rel),
+                     "launches": launched}
+        log(f"  {kind} block [{b},{s},{cfg.d_model}] f32: {len(rel)} "
+            f"gradients, largest relative error {max(rel):.3g}; "
+            f"launches {launched}")
+        if max(rel) > GRAD_CHECK_TOL or not all(
+                bool(torch.isfinite(g).all()) for g in got):
+            raise AssertionError(f"grad check {kind}: relative errors {rel}")
+    return out
+
+
+def full_step_grads(torch) -> dict:
+    """Phase 9 (1): one lm_loss step of the full 24-layer bf16 model on a
+    training microbatch: every parameter leaf's gradient must be finite
+    with a nonzero norm (a kernel output outside the autograd graph
+    leaves its inputs' leaves without one)."""
+    from repro_torch.configs import granite_moe_1b
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models.registry import build
+    from repro_torch.train.train_step import value_and_grad
+    cfg = granite_moe_1b.CONFIG
+    model = build(cfg)
+    params = model.init(1, "cuda")
+    pipe = TokenPipeline(cfg.vocab, TRAIN_MICRO, TRAIN_SEQ, seed=1,
+                         device="cuda")
+    batch = next(pipe)
+    pipe.close()
+    (loss, metrics), grads = value_and_grad(model.loss, params, batch)
+    norms = {p: float(g.float().norm()) for p, g in _named_leaves(grads)}
+    bad = {k: v for k, v in norms.items() if not (v > 0 and v < float("inf"))}
+    log(f"  full model, one microbatch: loss {float(loss):.6f} (xent "
+        f"{float(metrics['xent']):.6f}, aux {float(metrics['aux']):.6f}); "
+        f"{len(norms)} gradient leaves, smallest norm "
+        f"{min(norms.values()):.4g} ({min(norms, key=norms.get)})")
+    if bad or not torch.isfinite(loss):
+        raise AssertionError(f"leaves without a finite nonzero gradient: "
+                             f"{bad}")
+    del params, grads
+    torch.cuda.empty_cache()
+    return {"loss": float(loss), "leaves": len(norms),
+            "min_grad_norm": min(norms.values())}
+
+
+def golden_train(torch) -> dict:
+    """Phase 9 (2): the golden run (`repro_torch.train.golden.run`) on the
+    card, on the golden's own batches, held to
+    golden/granite_moe_train.json within `golden.TOL`; and how many of
+    those tokens this machine's `TokenPipeline` draws otherwise (numpy's
+    zipf differs between numpy versions; logged, not held)."""
+    from repro_torch.train import golden as G
+    doc = G.load()
+    want = G.batches(doc, "cuda")
+    drawn = G.pipeline_batches("cuda")
+    differ = sum(int((a["tokens"] != b["tokens"]).sum())
+                 for a, b in zip(drawn, want))
+    t0 = time.perf_counter()
+    rec = G.run("cuda", want)
+    gap = G.compare(doc, rec)
+    log(f"  golden config (full width, {G.N_LAYERS} layers, f32, batch "
+        f"{G.BATCH}x{G.SEQ}, microbatch {G.MICROBATCH}, adamw, {G.STEPS} "
+        f"steps) in {time.perf_counter() - t0:.2f} s: losses "
+        f"{[s['loss'] for s in rec['steps']]}; relative gap to the JAX run "
+        f"{gap} (tol {G.TOL}); this machine's TokenPipeline draws "
+        f"{differ} of the golden's {G.STEPS * G.BATCH * G.SEQ} tokens "
+        f"otherwise (numpy {__import__('numpy').__version__})")
+    if max(gap.values()) > G.TOL:
+        raise AssertionError(f"golden training run off by {gap}")
+    return {"steps": rec["steps"], "gap": gap, "tol": G.TOL,
+            "pipeline_tokens_differing": differ}
+
+
+def _named_leaves(tree, prefix: str = ""):
+    """(path, leaf) of a tree of dicts, keys in sorted order."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _named_leaves(tree[k], f"{prefix}{k}/")
+        else:
+            yield prefix + k, tree[k]
+
+
+def _params_equal(torch, a: dict, b: dict) -> bool:
+    return all(pa == pb and torch.equal(x, y) for (pa, x), (pb, y) in
+               zip(_named_leaves(a), _named_leaves(b)))
+
+
+def full_run(torch) -> dict:
+    """Phase 9 (3): `Trainer` on the full model (24 layers, bf16, batch
+    8 x 256 in microbatches of 4, AdamW, remat full): 1 warm-up step and
+    4 timed, with every training kernel's launch count set to 0 just
+    before and read just after; losses finite; step ms (median of the
+    timed steps), tokens/s, peak memory; then two runs of the same 2
+    steps, bitwise equal in loss and parameters; then one step under
+    torch.profiler for the device's busy time and idle share."""
+    from repro_torch.configs import granite_moe_1b
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    cfg = granite_moe_1b.CONFIG
+    tcfg = TrainConfig(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                       microbatch=TRAIN_MICRO, log_every=1)
+    wrappers = train_wrappers()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    tr = Trainer(cfg, tcfg, device="cuda")
+    state = tr.run()
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in tr.metrics_log]
+    tr_step_times = tr.step_times
+    step_s = statistics.median(tr_step_times[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    per_step = {n: c / TRAIN_STEPS for n, c in launches.items()}
+    log(f"  full model: losses {losses}; step s {tr.step_times}; median "
+        f"of the timed steps {step_s * 1e3:.3f} ms, {tokens / step_s:.1f} "
+        f"tokens/s; peak memory {peak / 2**30:.3f} GiB")
+    log(f"    launches in the run: {launches}; a step: {per_step}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite losses {losses}")
+    # the serving instance of attention stays idle: training's forward is
+    # the training instance
+    if launches["flash_attention"] or not all(
+            launches[n] for n in wrappers if n != "flash_attention"):
+        raise AssertionError(f"training launches {launches}")
+
+    # the device's busy time over one more step of the same run
+    step_fn = tr._step_fn
+    pipe = TokenPipeline(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=tcfg.seed,
+                         device="cuda")
+    batch = next(pipe)
+    pipe.close()
+    params, opt = state["params"], state["opt"]
+    busy_s, kernels = device_busy(torch, lambda: step_fn(params, opt, batch))
+    top = sorted(kernels, key=_dev_us, reverse=True)[:10]
+    prof = {"device_busy_ms": busy_s * 1e3, "step_ms": step_s * 1e3,
+            "idle_share": 1.0 - busy_s / step_s,
+            "kernel_launches": sum(e.count for e in kernels),
+            "top": [{"name": e.key[:60], "count": e.count,
+                     "device_ms": _dev_us(e) / 1e3} for e in top]}
+    log(f"  one step under torch.profiler: device busy "
+        f"{prof['device_busy_ms']:.3f} ms of {prof['step_ms']:.3f} ms: "
+        f"idle share {prof['idle_share']:.4f}; "
+        f"{prof['kernel_launches']} kernel launches")
+    for t in prof["top"]:
+        log(f"    {t['device_ms']:9.3f} ms  x{t['count']:6d}  {t['name']}")
+    del state, params, opt, tr
+    torch.cuda.empty_cache()
+
+    # two runs of the same 2 steps: the same bits
+    runs = []
+    for _ in range(2):
+        t2 = Trainer(cfg, TrainConfig(steps=2, batch=TRAIN_BATCH,
+                                      seq=TRAIN_SEQ, microbatch=TRAIN_MICRO,
+                                      log_every=1), device="cuda")
+        st = t2.run()
+        runs.append(([m["loss"] for m in t2.metrics_log], st["params"]))
+        del st
+    same = runs[0][0] == runs[1][0] and _params_equal(torch, runs[0][1],
+                                                      runs[1][1])
+    log(f"  two runs of 2 steps: losses {runs[0][0]} and {runs[1][0]}; "
+        f"bitwise equal (losses and parameters): {same}")
+    if not same:
+        raise AssertionError("two runs of the same steps differ")
+    del runs
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_s": list(tr_step_times),
+            "step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+            "max_memory_allocated": peak, "launches": launches,
+            "launches_per_step": per_step, "profile": prof,
+            "repeat_bitwise": same}
+
+
+def restart_run(torch) -> dict:
+    """Phase 9 (4): `Trainer` at the golden size, 3 steps, with a
+    checkpoint every 2 steps and a failure injected at step 2 (after the
+    step-2 checkpoint) restarts once, and its final parameters are
+    bitwise the uninterrupted run's."""
+    import shutil
+    import tempfile
+
+    from repro_torch import convert
+    from repro_torch.train import golden as G
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    cfg = G.config()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="train_ckpt_", dir=os.path.join(ROOT,
+                                                                  "build"))
+    finals, restarts = [], []
+    try:
+        for ckpt_dir, fail_at in ((None, None), (ckpt, 2)):
+            tcfg = TrainConfig(steps=3, batch=G.BATCH, seq=G.SEQ,
+                               microbatch=G.MICROBATCH, lr=G.LR,
+                               warmup=G.WARMUP, ckpt_dir=ckpt_dir,
+                               ckpt_every=2, log_every=1)
+            tr = Trainer(cfg, tcfg, device="cuda")
+            params = convert.lm_params_to_torch(
+                convert.numpy_lm_params(cfg, G.SEED), "cuda")
+            finals.append(tr.run(fail_at=fail_at, params=params)["params"])
+            restarts.append(tr.restarts)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    same = _params_equal(torch, finals[0], finals[1])
+    log(f"  golden size, 3 steps, checkpoint every 2, failure at step 2: "
+        f"restarts {restarts[1]}; final parameters bitwise the "
+        f"uninterrupted run's: {same}")
+    if restarts != [0, 1] or not same:
+        raise AssertionError(f"restart run: restarts {restarts}, equal "
+                             f"{same}")
+    return {"restarts": restarts[1], "bitwise": same}
+
+
+def train_child(torch) -> int:
+    """Phase 9 in a child process, with PyTorch's deterministic
+    algorithms on (`trainer.deterministic`, before the first product on
+    the card): the gradient check, the golden run, the full run and the
+    restart run; one JSON line last, with the full run's launches."""
+    from repro_torch.train.trainer import deterministic
+    deterministic()
+    t0 = time.perf_counter()
+
+    def part(msg):
+        log(f"  {msg}  [child at {time.perf_counter() - t0:.1f} s]")
+    part("(1) gradients")
+    grads = grad_check(torch)
+    full_grads = full_step_grads(torch)
+    part("(2) the golden run")
+    gold = golden_train(torch)
+    part("(3) the full run")
+    full = full_run(torch)
+    part("(4) restart")
+    restart = restart_run(torch)
+    part("done")
+    print(json.dumps({"grad_check": grads, "full_step_grads": full_grads,
+                      "golden": gold, "full": full, "restart": restart,
+                      "launches": full["launches"]}))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -1907,6 +2416,8 @@ def main(argv=None) -> int:
     ap.add_argument("--replica-child", action="store_true",
                     help=argparse.SUPPRESS)
     ap.add_argument("--sweep-child", action="store_true",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--train-child", action="store_true",
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
@@ -1936,6 +2447,8 @@ def main(argv=None) -> int:
         return replica_child(torch, SF, FT)
     if args.sweep_child:
         return sweep_child(SF, FT)
+    if args.train_child:
+        return train_child(torch)
     t_start = time.perf_counter()
 
     smi = nvidia_smi()
@@ -1961,6 +2474,9 @@ def main(argv=None) -> int:
     errs = check_kernels(torch, C, SF, FT)
     phase(t_start, "[3] the serving kernels")
     errs.update(check_serving_kernels(torch, C, serve_ops))
+    phase(t_start, "[3] the training kernels: flash_attention's training "
+                   "instance and the three backward kernels")
+    errs.update(check_training_kernels(torch, C, FA, RN, TR))
 
     phase(t_start, "[4] main path: the simulator's workloads through "
                    "run_cell")
@@ -2032,11 +2548,13 @@ def main(argv=None) -> int:
     # the serving kernels first: `measure` traces, and no time is taken
     # after a trace in this phase
     serving, one_op = measure_serving(torch, C, serve_ops, errs, lens)
-    kernels = measure(torch, C, SF, FT, errs, launches) + serving
+    training = measure_training(torch, C, FA, RN, TR, errs)
+    kernels = measure(torch, C, SF, FT, errs, launches) + serving \
+        + training
     check_one_op(one_op)
 
-    phase(t_start, "[6] where the time goes: one fused n=64 srsp run "
-                   "under torch.profiler")
+    phase(t_start, "[6] where the time goes: one fused n=64 srsp "
+                   "kv_directory run under torch.profiler")
     prof = [profile_cell(torch, w, seed, rows[cells.index((
         w, "srsp", N_MAIN, seed, "fused"))]["steady_s"])
         for w, seed in PROFILED]
@@ -2048,13 +2566,23 @@ def main(argv=None) -> int:
                 TR.topk_router]
     serve = serve_path(torch, counters)
     for rec in kernels:
-        if rec["launches"] is None:
+        if rec["launches"] is None and rec["name"] not in TRAIN_KERNELS:
             rec["launches"] = serve["launches"][rec["name"]]
 
     phase(t_start, "[8] cross-pod delta sync: make_pod_sync, 4 pods "
                    "stacked on the card")
     sync_recs, flush_entry = delta_sync_path(torch, SF)
     kernels.append(flush_entry)
+
+    phase(t_start, "[9] training granite-moe-1b-a400m (repro_torch.train), "
+                   "deterministic algorithms on, in a child process")
+    train = run_child("--train-child", "train", timeout=900)
+    for rec in kernels:
+        if rec["name"] in TRAIN_KERNELS:
+            rec["launches"] = train["launches"][rec["name"]]
+    if not all(train["launches"][n] for n in TRAIN_KERNELS):
+        raise AssertionError(f"a training kernel never launched: "
+                             f"{train['launches']}")
     t_end = time.perf_counter()
     total_s = t_end - t_start
     for msg, secs in phase_times(t_end):
@@ -2077,7 +2605,9 @@ def main(argv=None) -> int:
                        "bool_layout": bool_run, "sweep": sweep_run,
                        "kernels": kernels, "profile": prof,
                        "serve": serve, "delta_sync": sync_recs,
+                       "train": train,
                        "total_s": total_s,
+                       "phases": phase_times(t_end),
                        "ptxas": reports}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

@@ -50,6 +50,14 @@
 //   V tiles of 64 rows are staged as float32 in shared memory; each row
 //   takes its columns in chunks of 16 (16 scores, one max, one rescale,
 //   16 p*V updates) up to the diagonal.
+//
+// The training instance, `flash_attention_lse_launch`: the same two
+// kernels, template instances with LSE set, which also write each row's
+// log-sum-exp of its scaled scores, lse [B, Hq, S] float32 (natural
+// log: m + log(l), with the wgmma kernel's log2-unit max and sum turned
+// back by ln 2).  The backward kernel (`csrc/flash_attention_bwd.cu`)
+// rebuilds P from it.  The serving entry launches the LSE = false
+// instances, whose code is the one this note describes.
 #include <cuda.h>
 
 #include "common.cuh"
@@ -65,11 +73,11 @@ namespace {
 // CUDA-core kernel: float32, and bfloat16 at D = 16
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <typename T, int D, bool LSE>
 __global__ void __launch_bounds__(FA_BQ)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int Hq, int Hkv,
-             int S, float scale) {
+             const T* __restrict__ v, T* __restrict__ o,
+             float* __restrict__ lse, int Hq, int Hkv, int S, float scale) {
   __shared__ float ks[FA_BK][D];
   __shared__ float vs[FA_BK][D];
   const int bh = blockIdx.y;
@@ -138,24 +146,27 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* orow = o + qbase + static_cast<long long>(row) * D;
 #pragma unroll
     for (int d = 0; d < D; ++d) orow[d] = to_store<T>(acc[d] * inv);
+    if constexpr (LSE) {
+      lse[static_cast<long long>(bh) * S + row] = m + logf(l);
+    }
   }
 }
 
-template <typename T>
+template <typename T, bool LSE>
 int launch_cuda_core(const void* q, const void* k, const void* v, void* o,
-                     int B, int Hq, int Hkv, int S, int D, float scale,
-                     cudaStream_t s) {
+                     float* lse, int B, int Hq, int Hkv, int S, int D,
+                     float scale, cudaStream_t s) {
   const dim3 grid(repro_cdiv(S, FA_BQ), B * Hq);
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
   T* op = static_cast<T*>(o);
   if (D == 64) {
-    flash_kernel<T, 64><<<grid, FA_BQ, 0, s>>>(qp, kp, vp, op, Hq, Hkv, S,
-                                               scale);
+    flash_kernel<T, 64, LSE><<<grid, FA_BQ, 0, s>>>(qp, kp, vp, op, lse, Hq,
+                                                    Hkv, S, scale);
   } else if (D == 16) {
-    flash_kernel<T, 16><<<grid, FA_BQ, 0, s>>>(qp, kp, vp, op, Hq, Hkv, S,
-                                               scale);
+    flash_kernel<T, 16, LSE><<<grid, FA_BQ, 0, s>>>(qp, kp, vp, op, lse, Hq,
+                                                    Hkv, S, scale);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -285,12 +296,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+template <bool LSE>
 __global__ void __launch_bounds__(FW_THREADS)
 wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
              const __grid_constant__ CUtensorMap kmap,
              const __grid_constant__ CUtensorMap vmap,
-             __nv_bfloat16* __restrict__ o, int Hq, int Hkv, int S,
-             float scale_log2) {
+             __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Hq,
+             int Hkv, int S, float scale_log2) {
   extern __shared__ unsigned char fw_raw[];
   // the 128-byte swizzle repeats every 1024 bytes of shared address:
   // tiles start on such a boundary so the wgmma descriptors need no base
@@ -426,6 +438,13 @@ wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const float inv0 = 1.0f / fmaxf(l0, 1e-30f);
   const float inv1 = 1.0f / fmaxf(l1, 1e-30f);
   const int g0 = qb * 64 + r0;
+  if constexpr (LSE) {   // the 4 threads of a row hold the same m and l
+    if ((lane & 3) == 0) {
+      float* lb = lse + static_cast<long long>(bh) * S;
+      if (g0 < S) lb[g0] = (m0 + log2f(l0)) * 0.6931471805599453f;
+      if (g0 + 8 < S) lb[g0 + 8] = (m1 + log2f(l1)) * 0.6931471805599453f;
+    }
+  }
   __nv_bfloat16* ob = o + static_cast<long long>(bh) * S * FW_D;
 #pragma unroll
   for (int i = 0; i < 32; i += 2) {
@@ -485,8 +504,10 @@ bool encode_map(EncodeTiled enc, CUtensorMap* map, const void* ptr,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
-                 int Hq, int Hkv, int S, float scale, cudaStream_t s) {
+template <bool LSE>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int B, int Hq, int Hkv, int S, float scale,
+                 cudaStream_t s) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
   CUtensorMap qm, km, vm;
@@ -496,10 +517,27 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
     return cudaErrorInvalidValue;
   }
   const dim3 grid(repro_cdiv(S, 64), B * Hq);
-  wgmma_kernel<<<grid, FW_THREADS, FW_SMEM, s>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), Hq, Hkv, S,
+  wgmma_kernel<LSE><<<grid, FW_THREADS, FW_SMEM, s>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, Hq, Hkv, S,
       scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool LSE>
+int launch_any(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int Hq, int Hkv, int S, int D, float scale,
+               int dtype, cudaStream_t s) {
+  if (Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
+  if (B <= 0 || S <= 0) return 0;
+  if (dtype == 0) {
+    return launch_cuda_core<float, LSE>(q, k, v, o, lse, B, Hq, Hkv, S, D,
+                                        scale, s);
+  }
+  if (D == FW_D) {
+    return launch_wgmma<LSE>(q, k, v, o, lse, B, Hq, Hkv, S, scale, s);
+  }
+  return launch_cuda_core<__nv_bfloat16, LSE>(q, k, v, o, lse, B, Hq, Hkv, S,
+                                              D, scale, s);
 }
 
 }  // namespace
@@ -511,13 +549,18 @@ REPRO_EXPORT int flash_attention_launch(const void* q, const void* k,
                                         int Hq, int Hkv, int S, int D,
                                         float scale, int dtype,
                                         void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
-  if (B <= 0 || S <= 0) return 0;
-  if (dtype == 0) {
-    return launch_cuda_core<float>(q, k, v, o, B, Hq, Hkv, S, D, scale, s);
-  }
-  if (D == FW_D) return launch_wgmma(q, k, v, o, B, Hq, Hkv, S, scale, s);
-  return launch_cuda_core<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, S, D, scale,
-                                         s);
+  return launch_any<false>(q, k, v, o, nullptr, B, Hq, Hkv, S, D, scale,
+                           dtype, static_cast<cudaStream_t>(stream));
+}
+
+// The training instance: as flash_attention_launch, and lse [B, Hq, S]
+// float32, each row's natural log-sum-exp of its scaled, masked scores.
+REPRO_EXPORT int flash_attention_lse_launch(const void* q, const void* k,
+                                            const void* v, void* o,
+                                            float* lse, int B, int Hq,
+                                            int Hkv, int S, int D,
+                                            float scale, int dtype,
+                                            void* stream) {
+  return launch_any<true>(q, k, v, o, lse, B, Hq, Hkv, S, D, scale, dtype,
+                          static_cast<cudaStream_t>(stream));
 }

@@ -583,3 +583,129 @@ def check_router(fn, plain, k: int, device) -> tuple:
         raise AssertionError(f"{fn.__name__} case {k}: weight error {err}, "
                              f"{int(rows.sum())}/{len(rows)} decided rows")
     return err, int(rows.sum()), len(rows)
+
+
+# --------------------------------------------------------------------------
+# the training kernels: the forward's training instance
+# (`flash_attention_lse`) and the three backward kernels, on the
+# training path's shapes (granite-moe-1b-a400m, microbatch 4 x 256
+# tokens) and the edge cases: S in {1, 17, 64, 256, 300} (300: a ragged
+# last tile), GQA groups 1, 2 and 8, D 16 and 64, float32 and bfloat16;
+# rmsnorm on one row, odd d and a row wider than 48 KB of dw partial;
+# the router at k = 1, k = E and on planted ties.  Shared by
+# chip_smoke.py and tests/test_torch_cuda.py.
+# --------------------------------------------------------------------------
+
+TRAIN_ATTN_CASES = (
+    [(f"S={s} {dt}", dict(b=1, hq=16, hkv=8, s=s, d=64), dt)
+     for s in (1, 17, 64, 256, 300) for dt in ("bfloat16", "float32")]
+    + [(f"GQA group {g} S=64 {dt}", dict(b=2, hq=16, hkv=16 // g, s=64,
+                                           d=64), dt)
+       for g in (1, 2, 8) for dt in ("bfloat16", "float32")]
+    + [(f"D=16 SMOKE B=2 S=33 {dt}", dict(b=2, hq=4, hkv=2, s=33, d=16), dt)
+       for dt in ("bfloat16", "float32")]
+    # the training path's shape: a microbatch of 4 sequences of 256
+    + [("B=4 S=256 bfloat16 (training)", dict(b=4, hq=16, hkv=8, s=256,
+                                              d=64), "bfloat16")])
+RMS_BWD_CASES = (
+    [(f"{shape} {dt}", dict(shape=shape), dt)
+     for shape in ((4, 256, 1024), (1, 1024), (5, 37), (3, 1031),
+                   (64, 64), (2, 12288))
+     for dt in ("bfloat16", "float32")])
+ROUTER_BWD_CASES = [
+    ("T=1024 E=32 k=8 (training)", dict(t=1024, e=32), 8),
+    ("T=17 E=32 k=1", dict(t=17, e=32), 1),
+    ("T=17 E=32 k=32 every expert", dict(t=17, e=32), 32),
+    ("T=9 E=4 k=2 SMOKE", dict(t=9, e=4), 2),
+    ("T=33 E=256 k=8", dict(t=33, e=256), 8),
+    ("T=7 E=99 k=5", dict(t=7, e=99), 5),
+    ("T=12 E=32 k=8 underflow", dict(t=12, e=32, underflow=True), 8)]
+# backward tolerances against the plain vjp: float32 sums of up to
+# 8 heads x 300 rows in another order (values of size ~1-10); bfloat16
+# gradients may round one bf16 ulp apart.  lse: float32 either way.
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+LSE_TOL = 1e-4
+
+
+def _grads(seed, shape, dtype, device):
+    rng = np.random.default_rng(10_000 + seed)
+    return to_dtype(rng.standard_normal(shape).astype(np.float32),
+                    dtype).to(device)
+
+
+def check_attn_train(FA, k: int, device) -> float:
+    """Case k of TRAIN_ATTN_CASES on `device`: the training instance
+    `flash_attention_lse` against `flash_attention_lse_ref` (output within
+    TOL, lse within LSE_TOL), then `flash_attention_bwd` against
+    `flash_attention_bwd_ref` on the same (o, lse, dO), each within
+    BWD_TOL; one launch each.  Returns the largest absolute error of
+    each: (forward, backward)."""
+    name, kw, dt = TRAIN_ATTN_CASES[k]
+    q, kk, v = (to_dtype(x, dt).to(device) for x in attn_inputs(k, **kw))
+    before = (FA.flash_attention_lse.launches,
+              FA.flash_attention_bwd.launches)
+    o, lse = FA.flash_attention_lse(q, kk, v)
+    o_ref, lse_ref = FA.flash_attention_lse_ref(q, kk, v)
+    do = _grads(k, tuple(q.shape), dt, device)
+    got = FA.flash_attention_bwd(q, kk, v, o_ref, do, lse_ref)
+    want = FA.flash_attention_bwd_ref(q, kk, v, o_ref, do, lse_ref)
+    torch.cuda.synchronize(device)
+    if (FA.flash_attention_lse.launches - before[0],
+            FA.flash_attention_bwd.launches - before[1]) != (1, 1):
+        raise AssertionError(f"attention training {name}: launches")
+    errs = [_abs_err(o, o_ref), _abs_err(lse, lse_ref)]
+    if within(o, o_ref, dt) > TOL[dt] \
+            or within(lse, lse_ref, "float32") > LSE_TOL:
+        raise AssertionError(f"flash_attention_lse {name}: output "
+                             f"{within(o, o_ref, dt)} lse "
+                             f"{within(lse, lse_ref, 'float32')}")
+    for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+        errs.append(_abs_err(g, w))
+        if within(g, w, dt) > BWD_TOL[dt]:
+            raise AssertionError(f"flash_attention_bwd {name}: {what} "
+                                 f"error {within(g, w, dt)}")
+    return max(errs[:2]), max(errs[2:])
+
+
+def check_rms_bwd(RN, k: int, device) -> float:
+    """Case k of RMS_BWD_CASES: `rmsnorm_bwd` on `device` (one launch)
+    against `rmsnorm_bwd_ref` on the same inputs, dx within BWD_TOL of
+    its type and dw (float32) within BWD_TOL["float32"].  Returns the
+    largest absolute error."""
+    name, kw, dt = RMS_BWD_CASES[k]
+    x, w = rms_inputs(200 + k, **kw)
+    x, w = to_dtype(x, dt).to(device), to_dtype(w, "float32").to(device)
+    dy = _grads(k, tuple(x.shape), dt, device)
+    before = RN.rmsnorm_bwd.launches
+    dx, dw = RN.rmsnorm_bwd(x, w, dy)
+    dx_ref, dw_ref = RN.rmsnorm_bwd_ref(x, w, dy)
+    torch.cuda.synchronize(device)
+    if RN.rmsnorm_bwd.launches != before + 1:
+        raise AssertionError(f"rmsnorm_bwd {name}: launches")
+    if within(dx, dx_ref, dt) > BWD_TOL[dt] \
+            or within(dw, dw_ref, "float32") > BWD_TOL["float32"]:
+        raise AssertionError(f"rmsnorm_bwd {name}: dx "
+                             f"{within(dx, dx_ref, dt)} dw "
+                             f"{within(dw, dw_ref, 'float32')}")
+    return max(_abs_err(dx, dx_ref), _abs_err(dw, dw_ref))
+
+
+def check_router_bwd(TR, k: int, device) -> float:
+    """Case k of ROUTER_BWD_CASES: `topk_router_bwd` on `device` (one
+    launch) against `topk_router_bwd_ref` on the same (w, idx, dw), the
+    router's own output on those logits, within ROUTER_W_TOL.  Returns
+    the largest absolute error."""
+    name, kw, topk = ROUTER_BWD_CASES[k]
+    logits = torch.from_numpy(router_inputs(300 + k, **kw)).to(device)
+    w, idx = TR.topk_router_ref(logits, topk)
+    dw = _grads(k, tuple(w.shape), "float32", device)
+    before = TR.topk_router_bwd.launches
+    got = TR.topk_router_bwd(w, idx, dw, kw["e"])
+    want = TR.topk_router_bwd_ref(w, idx, dw, kw["e"])
+    torch.cuda.synchronize(device)
+    if TR.topk_router_bwd.launches != before + 1:
+        raise AssertionError(f"topk_router_bwd {name}: launches")
+    err = _abs_err(got, want)
+    if err > ROUTER_W_TOL:
+        raise AssertionError(f"topk_router_bwd {name}: error {err}")
+    return err

@@ -37,7 +37,8 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD = pathlib.Path(__file__).resolve().parents[3] / "build"
 KERNELS = ("drain_writeback", "plane_commit", "trip_plan", "rmsnorm",
            "flash_attention", "flash_decode", "topk_router",
-           "selective_flush")
+           "selective_flush", "rmsnorm_bwd", "flash_attention_bwd",
+           "topk_router_bwd")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

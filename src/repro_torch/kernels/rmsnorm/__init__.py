@@ -1,1 +1,2 @@
-from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_ref  # noqa: F401
+from repro_torch.kernels.rmsnorm.ops import (  # noqa: F401
+    rmsnorm, rmsnorm_bwd, rmsnorm_bwd_ref, rmsnorm_ref)

@@ -108,8 +108,11 @@ TRACE_ATTEMPTS = 5
 TRACE_SLACK_S = 0.005
 
 
-def trace(fn, attempts=TRACE_ATTEMPTS, slack_s=TRACE_SLACK_S) -> list:
-    """torch.profiler's key_averages() (CPU and CUDA) of one call of `fn`,
+def trace(fn, attempts=TRACE_ATTEMPTS, slack_s=TRACE_SLACK_S,
+          cpu=True) -> list:
+    """torch.profiler's key_averages() (CPU and CUDA, or CUDA alone
+    without `cpu`: no operator records, whose count makes a long run's
+    trace slow to collect) of one call of `fn`,
     with `slack_s` seconds of idle time in the window before the call and
     after its synchronize.  A trace with no CUDA-side record is a tracer
     miss (a call that launches cannot make none) and is taken again, up
@@ -119,10 +122,12 @@ def trace(fn, attempts=TRACE_ATTEMPTS, slack_s=TRACE_SLACK_S) -> list:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
     for _ in range(attempts):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             time.sleep(slack_s)
             fn()
             torch.cuda.synchronize()

@@ -1,6 +1,7 @@
 """GQA attention (`repro.models.attention`, its GQA part): init, the
-full-sequence causal form of prefill (`gqa_train`, which also returns the
-layer's K/V cache) and one decode step against a cache (`gqa_decode`).
+full-sequence causal form of training and prefill (`gqa_train`, which
+also returns the layer's K/V cache) and one decode step against a cache
+(`gqa_decode`).
 Multi-head latent and cross attention are not ported yet (ROADMAP Queue
 A 16).
 """
@@ -36,14 +37,16 @@ def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def gqa_train(p: dict, cfg: ModelConfig, x: torch.Tensor,
-              positions: torch.Tensor):
+              positions: torch.Tensor, *, return_cache: bool = True):
     """Causal self-attention of x [B, S, d] at positions [B, S].  Returns
-    (out [B, S, d], (k, v) [B, Hkv, S, D]), as the JAX function does with
-    return_cache=True."""
+    (out [B, S, d], (k, v) [B, Hkv, S, D] or None), as the JAX function
+    does."""
     b, s, _ = x.shape
     q, k, v = _qkv(p, cfg, x, positions)
     o = L.blockwise_attention(q, k, v)
     out = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"]
+    if not return_cache:
+        return out, None
     return out, (k.contiguous(), v.contiguous())
 
 

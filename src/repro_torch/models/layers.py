@@ -5,8 +5,11 @@ init draws from an explicit `torch.Generator` on the generator's device,
 in float32, and casts to the requested type.  The norm and the two
 attention forms go to the hand-written kernels (dispatched by device):
 `rmsnorm` -> `kernels/rmsnorm`, `blockwise_attention` (the causal
-self-attention of prefill) -> `kernels/flash_attention`,
-`decode_attention` -> `kernels/flash_decode`.
+self-attention of training and prefill) -> `kernels/flash_attention`,
+`decode_attention` -> `kernels/flash_decode`.  `rmsnorm` and
+`blockwise_attention` are differentiable: with grad on, each runs as a
+`torch.autograd.Function` whose backward is a hand-written kernel too
+(`kernels/rmsnorm/ops.py`, `kernels/flash_attention/ops.py`).
 """
 from __future__ import annotations
 
@@ -47,7 +50,8 @@ def embed_init(gen: torch.Generator, vocab: int, d: int,
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm over the last axis, float32 math, x's type out."""
+    """RMSNorm over the last axis, float32 math, x's type out;
+    differentiable in x and scale."""
     return _rmsnorm_kernel(x, scale, eps)
 
 
@@ -85,10 +89,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, scale: float | None = None) -> torch.Tensor:
-    """Causal self-attention of a whole sequence (the prefill's case of
-    the JAX function: q_offset 0, no kv_len, Sq == Sk): q [B, H, S, D];
-    k, v [B, Hkv, S, D], through the flash attention kernel.  Prefill
-    continuation over a cache is not ported (ROADMAP Queue A 16)."""
+    """Causal self-attention of a whole sequence (the training and
+    prefill case of the JAX function: q_offset 0, no kv_len, Sq == Sk):
+    q [B, H, S, D]; k, v [B, Hkv, S, D], through the flash attention
+    kernel; differentiable in q, k and v.  Prefill continuation over a
+    cache is not ported (ROADMAP Queue A 16)."""
     return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                            scale=scale)
 

@@ -1,7 +1,6 @@
 """Architecture registry: config name -> `Model` bundle
-(`repro.models.registry`, its serving part).  The port builds the dense
-and MoE families; the other families and the training entry points are
-not ported yet (ROADMAP Queue A 16)."""
+(`repro.models.registry`).  The port builds the dense and MoE families;
+the other families are not ported yet (ROADMAP Queue A 16)."""
 from __future__ import annotations
 
 import dataclasses
@@ -22,6 +21,7 @@ _MODULES = {"granite-moe-1b-a400m": "granite_moe_1b"}
 class Model:
     cfg: ModelConfig
     init: Callable            # (seed, device) -> params
+    loss: Callable            # (params, batch) -> (loss, metrics)
     prefill: Callable         # (params, batch) -> (last_logits, caches)
     decode_step: Callable     # (params, caches, tokens, kv_len) -> (logits, caches)
     init_cache: Callable      # (b, max_len, device) -> caches
@@ -44,6 +44,7 @@ def build(cfg: ModelConfig) -> Model:
         init=lambda seed, device=None: T.lm_init(
             torch.Generator(common.resolve_device(device)).manual_seed(seed),
             cfg),
+        loss=lambda p, b, **kw: T.lm_loss(p, cfg, b, **kw),
         prefill=lambda p, b, **kw: T.lm_prefill(p, cfg, b, **kw),
         decode_step=lambda p, c, t, kl, **kw: T.lm_decode_step(
             p, cfg, c, t, kl, **kw),

@@ -1,5 +1,6 @@
-"""Decoder-only transformer LM, dense and MoE families, serving entry
-points (`repro.models.transformer`): `lm_init`, `lm_prefill` (cache +
+"""Decoder-only transformer LM, dense and MoE families
+(`repro.models.transformer`): `lm_init`, the training loss `lm_loss`
+(with `xent_loss` and per-layer remat), `lm_prefill` (cache +
 last-token logits), `lm_decode_step` (one token against the cache),
 `lm_init_cache` and `lm_grow_cache`.
 
@@ -8,12 +9,15 @@ stacked on a leading layer axis, `final_norm`, `dense_layers` for
 `first_k_dense` and `head` when embeddings are untied.  The layer loop
 is a Python loop over that axis.  Caches are a list of (k, v) pairs
 [L, B, Hkv, S, D], one per stack; `lm_decode_step` writes the new
-token's K/V into them in place and returns them.  Training (loss,
-remat) is not ported (ROADMAP Queue A 16).
+token's K/V into them in place and returns them.  Remat "full" (the
+JAX `nothing_saveable` policy) is `torch.utils.checkpoint` around each
+layer; remat "dots" and multi-token prediction are not ported (ROADMAP
+Queue A 16).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, unsupported
 from repro_torch.kernels import common
@@ -51,6 +55,16 @@ def layer(stack: dict, i: int) -> dict:
     return tree_map(lambda x: x[i], stack)
 
 
+def unstack(stack: dict) -> list:
+    """Every layer's parameters, each stacked leaf unbound on axis 0 once:
+    the backward stacks the layers' gradients in one operation, where
+    indexing layer by layer would add a zero-padded full-size gradient
+    per layer."""
+    parts = tree_map(lambda x: x.unbind(0), stack)
+    return [tree_map(lambda xs: xs[i], parts)
+            for i in range(len(parts["norm1"]))]
+
+
 # ------------------------------------------------------------------ blocks
 
 
@@ -81,6 +95,23 @@ def block_apply(p: dict, cfg: ModelConfig, kind: str, h: torch.Tensor,
     f = _ffn_apply(p["ffn"], cfg, kind,
                    L.rmsnorm(h, p["norm2"]).reshape(b * s, d))
     return h + f.reshape(b, s, d), cache
+
+
+def block_train(p: dict, cfg: ModelConfig, kind: str, h: torch.Tensor,
+                positions: torch.Tensor):
+    """Full-sequence training block: (h, the layer's aux loss, float32;
+    0 for a dense layer)."""
+    b, s, d = h.shape
+    a, _ = A.gqa_train(p["attn"], cfg, L.rmsnorm(h, p["norm1"]), positions,
+                       return_cache=False)
+    h = h + a
+    hn = L.rmsnorm(h, p["norm2"]).reshape(b * s, d)
+    if kind == "moe":
+        f, aux, _ = M.moe_train(p["ffn"], cfg, hn)
+    else:
+        f = L.swiglu_apply(p["ffn"], hn)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h + f.reshape(b, s, d), aux
 
 
 def block_decode(p: dict, cfg: ModelConfig, kind: str, h: torch.Tensor,
@@ -130,6 +161,57 @@ def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
 def _head(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     w = params["emb"].T if cfg.tie_embeddings else params["head"]
     return h @ w
+
+
+def _run_stack(stack: dict, cfg: ModelConfig, kind: str, h: torch.Tensor,
+               positions: torch.Tensor, *, remat: bool = True):
+    """The layers of `stack` in order: (h, the sum of their aux losses).
+    With `remat` each layer runs under `torch.utils.checkpoint`
+    (non-reentrant): its forward is recomputed in the backward, so the
+    forward kernels launch twice a training step."""
+    if remat and cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat policy {cfg.remat_policy!r}: only 'full' is ported "
+            f"(ROADMAP Queue A 16)")
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for lp in unstack(stack):
+        if remat:
+            h, a = checkpoint(block_train, lp, cfg, kind, h, positions,
+                              use_reentrant=False)
+        else:
+            h, a = block_train(lp, cfg, kind, h, positions)
+        aux = aux + a
+    return h, aux
+
+
+def xent_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Stable cross entropy in float32, mean over positions."""
+    lf = logits.float()
+    m = lf.max(-1, keepdim=True).values
+    lse = torch.log(torch.exp(lf - m).sum(-1)) + m[..., 0]
+    gold = lf.gather(-1, labels.long()[..., None])[..., 0]
+    return (lse - gold).mean()
+
+
+def lm_loss(params: dict, cfg: ModelConfig, batch: dict, *,
+            remat: bool = True):
+    """batch {"tokens": [B, S], "labels": [B, S]} -> (loss, metrics):
+    next-token cross entropy plus the MoE layers' aux loss, with metrics
+    `xent`, `aux` and `loss` (0-d float32 tensors)."""
+    unsupported(cfg)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    h = _embed(params, cfg, tokens)
+    if "dense_layers" in params:
+        h, _ = _run_stack(params["dense_layers"], cfg, "dense", h, positions,
+                          remat=remat)
+    h, aux = _run_stack(params["layers"], cfg, "moe" if cfg.moe else "dense",
+                        h, positions, remat=remat)
+    h = L.rmsnorm(h, params["final_norm"])
+    xent = xent_loss(_head(params, cfg, h), batch["labels"])
+    loss = xent + aux
+    return loss, {"xent": xent, "aux": aux, "loss": loss}
 
 
 def lm_prefill(params: dict, cfg: ModelConfig, batch: dict):

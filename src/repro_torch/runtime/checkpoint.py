@@ -14,8 +14,10 @@ numpy arrays or Python scalars at the leaves; None is an empty subtree.
 Leaf types follow `repro_torch.convert`: the packed metadata planes
 (`wvalid`, `wdirty`) are int32 bit patterns here and uint32 in the JAX
 package, so they are written as uint32 and read back into an int32 leaf
-bit for bit.  Restored leaves are tensors, on the device of the `like`
-leaf where that is a tensor, else on the CPU.  Resharding on restore is
+bit for bit.  numpy has no bfloat16: a bfloat16 leaf (a model's
+weights in training) is written as float32, exactly, and read back into
+a bfloat16 `like` leaf as bfloat16.  Restored leaves are tensors, on the
+device of the `like` leaf where that is a tensor, else on the CPU.  Resharding on restore is
 not ported (one card has no mesh).
 """
 from __future__ import annotations
@@ -69,8 +71,12 @@ def _unflatten(like, leaves):
 
 def _host(path: tuple, leaf) -> np.ndarray:
     """A leaf as the numpy array the JAX package would save."""
-    arr = leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor) \
-        else np.asarray(leaf)
+    if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach()
+        arr = (leaf.float() if leaf.dtype == torch.bfloat16
+               else leaf).cpu().numpy()
+    else:
+        arr = np.asarray(leaf)
     if path and path[-1].lstrip(".") in PLANES and arr.dtype == np.int32:
         arr = arr.view(np.uint32)
     return arr
@@ -132,7 +138,10 @@ def _leaf(arr: np.ndarray, like) -> torch.Tensor:
     if isinstance(like, torch.Tensor) and like.dtype == torch.int32 \
             and arr.dtype == np.uint32:
         arr = arr.view(np.int32)
-    return torch.as_tensor(arr, device=dev)
+    t = torch.as_tensor(arr, device=dev)
+    if isinstance(like, torch.Tensor) and like.dtype == torch.bfloat16:
+        t = t.to(torch.bfloat16)
+    return t
 
 
 def restore_checkpoint(path: str, like: Any, *, shardings: Any = None):

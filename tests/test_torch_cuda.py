@@ -776,3 +776,81 @@ def _sweep_golden(cuda, tmp):
     doc = json.loads(out.read_text())
     assert doc["kernel_mode"] == "cuda" and doc["backend"] == "cuda"
     assert sweep_doc.diff_modeled(doc, golden) == []
+
+
+# ---------------------------------------------------------------- training
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(len(C.TRAIN_ATTN_CASES)),
+                         ids=_ids(C.TRAIN_ATTN_CASES))
+def test_flash_attention_training_kernels_on_card(cuda, k):
+    """The training instance (output and lse) and the backward kernel
+    against their plain versions (`cases.check_attn_train`)."""
+    C.check_attn_train(FA, k, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(len(C.RMS_BWD_CASES)),
+                         ids=_ids(C.RMS_BWD_CASES))
+def test_rmsnorm_bwd_kernel_on_card(cuda, k):
+    C.check_rms_bwd(RN, k, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(len(C.ROUTER_BWD_CASES)),
+                         ids=_ids(C.ROUTER_BWD_CASES))
+def test_topk_router_bwd_kernel_on_card(cuda, k):
+    C.check_router_bwd(TR, k, cuda)
+
+
+@pytest.mark.cuda
+def test_backward_kernels_are_bitwise_deterministic(cuda):
+    """No float atomics: two calls give the same bits."""
+    q, k, v = (C.to_dtype(x, "bfloat16").to(cuda)
+               for x in C.attn_inputs(1, 4, 16, 8, 300, 64))
+    o, lse = FA.flash_attention_lse(q, k, v)
+    do = torch.randn_like(q)
+    a, b = (FA.flash_attention_bwd(q, k, v, o, do, lse) for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    x, w = (C.to_dtype(t, dt).to(cuda) for t, dt in zip(
+        C.rms_inputs(2, (1024, 1024)), ("bfloat16", "float32")))
+    dy = torch.randn_like(x)
+    a, b = (RN.rmsnorm_bwd(x, w, dy) for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_training_graph_reaches_every_leaf_on_card(cuda):
+    """One lm_loss step of granite's SMOKE config on the card: every
+    parameter leaf gets a finite, nonzero gradient (a kernel output
+    outside the autograd graph would leave some without one), within
+    1e-4 of the same step on the CPU (plain versions)."""
+    from repro_torch import convert
+    from repro_torch.configs import granite_moe_1b
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import tree_map
+    from repro_torch.train.golden import leaf_norms
+    from repro_torch.train.train_step import value_and_grad
+    cfg = granite_moe_1b.SMOKE
+    weights = convert.numpy_lm_params(cfg, seed=0)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab, (2, 40)).astype(np.int32)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        batch = {"tokens": torch.from_numpy(tokens[:, :-1].copy()).to(dev),
+                 "labels": torch.from_numpy(tokens[:, 1:].copy()).to(dev)}
+        params = convert.lm_params_to_torch(weights, dev)
+        before = FA.flash_attention_bwd.launches
+        (loss, _), grads = value_and_grad(
+            lambda p, b: T.lm_loss(p, cfg, b), params, batch)
+        diff = {} if dev.type == "cuda" else leaf_norms(tree_map(
+            lambda g, c: g - c.cpu(), grads, out["cuda"][1]))
+        out[dev.type] = (float(loss), grads,
+                         FA.flash_attention_bwd.launches - before, diff)
+    assert out["cuda"][2] == 2 and out["cpu"][2] == 0   # 2 layers
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * out["cpu"][0]
+    norms = leaf_norms(out["cpu"][1])
+    for path, n in leaf_norms(out["cuda"][1]).items():
+        assert np.isfinite(n) and n > 0, path
+        assert out["cpu"][3][path] <= 1e-4 * norms[path], path
