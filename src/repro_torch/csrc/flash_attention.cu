@@ -51,6 +51,9 @@
 //   takes its columns in chunks of 16 (16 scores, one max, one rescale,
 //   16 p*V updates) up to the diagonal.
 //
+// The TMA, mbarrier and `wgmma` helpers and the tensor map builder are
+// in `hopper.cuh`, which the backward (`flash_attention_bwd.cu`) shares.
+//
 // The training instance, `flash_attention_lse_launch`: the same two
 // kernels, template instances with LSE set, which also write each row's
 // log-sum-exp of its scaled scores, lse [B, Hq, S] float32 (natural
@@ -58,9 +61,7 @@
 // back by ln 2).  The backward kernel (`csrc/flash_attention_bwd.cu`)
 // rebuilds P from it.  The serving entry launches the LSE = false
 // instances, whose code is the one this note describes.
-#include <cuda.h>
-
-#include "common.cuh"
+#include "hopper.cuh"
 
 #define FA_BQ 64
 #define FA_BK 64
@@ -181,120 +182,6 @@ int launch_cuda_core(const void* q, const void* k, const void* v, void* o,
 #define FW_TILE_BYTES (64 * FW_D * 2)       // one 64 x 64 bf16 tile, 8 KB
 #define FW_THREADS 160                      // warpgroup 0 + producer warp
 #define FW_SMEM (5 * FW_TILE_BYTES + 1024 + 64)   // Q, 2 x (K, V), bars
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-// wait for the completion of the barrier's phase of parity `parity`; a
-// wait that never ends (a load that never lands) traps instead of hanging
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t spins = 0; !done; ++spins) {
-    if (spins == (1u << 26)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  }
-}
-
-// one 64 x 64 box of a 3-D tensor map at (0, row, head) into `dst`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int row, int head) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0),
-         "r"(row), "r"(head)
-      : "memory");
-}
-
-// shared-memory matrix descriptor, 128-byte swizzle; `lbo`/`sbo` in bytes
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-      | static_cast<uint64_t>(lbo >> 4) << 16
-      | static_cast<uint64_t>(sbo >> 4) << 32
-      | static_cast<uint64_t>(1) << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps the compiler from moving register reads or writes across the
-// asynchronous wgmma region
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[16]) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(a[i]) :: "memory");
-}
-
-#define FW_D32(d)                                                          \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),         \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),     \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),     \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),     \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),     \
-      "+f"(d[31])
-#define FW_DREGS                                                           \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
-  "%30, %31}"
-
-// d (+)= A . B, m64n64k16, A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FW_DREGS
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : FW_D32(d)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d += A . B, m64n64k16, A in registers, B MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FW_DREGS
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : FW_D32(d)
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 template <bool LSE>
 __global__ void __launch_bounds__(FW_THREADS)
@@ -458,50 +345,6 @@ wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
           __floats2bfloat162_rn(oacc[i] * inv, oacc[i + 1] * inv);
     }
   }
-}
-
-// cuTensorMapEncodeTiled, a CUDA driver API entry point fetched through
-// the runtime, so that the library needs no -lcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
-// [heads, S, 64] bf16 as a 3-D map of 64 x 64 boxes, 128-byte swizzle
-bool encode_map(EncodeTiled enc, CUtensorMap* map, const void* ptr,
-                int heads, int S) {
-  const cuuint64_t dims[3] = {FW_D, static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(heads)};
-  const cuuint64_t strides[2] = {FW_D * 2,
-                                 static_cast<cuuint64_t>(S) * FW_D * 2};
-  const cuuint32_t box[3] = {FW_D, 64, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-             const_cast<void*>(ptr), dims, strides, box, unit,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <bool LSE>

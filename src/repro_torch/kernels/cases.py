@@ -341,12 +341,14 @@ def rms_inputs(seed, shape):
     return x, w
 
 
-def attn_inputs(seed, b, hq, hkv, s, d):
-    """flash_attention (q [B,Hq,S,D], k, v [B,Hkv,S,D])."""
+def attn_inputs(seed, b, hq, hkv, s, d, peak=1.0):
+    """flash_attention (q [B,Hq,S,D], k, v [B,Hkv,S,D]); `peak` scales q
+    and k, so the scaled scores' spread grows by peak^2 (softmax rows
+    near one-hot)."""
     rng = np.random.default_rng(seed)
-    return tuple(rng.standard_normal(shape).astype(np.float32)
-                 for shape in ((b, hq, s, d), (b, hkv, s, d),
-                               (b, hkv, s, d)))
+    q, k, v = (rng.standard_normal(shape).astype(np.float32)
+               for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+    return q * np.float32(peak), k * np.float32(peak), v
 
 
 def decode_inputs(seed, b, hq, hkv, s, d, lens=None):
@@ -591,9 +593,16 @@ def check_router(fn, plain, k: int, device) -> tuple:
 # training path's shapes (granite-moe-1b-a400m, microbatch 4 x 256
 # tokens) and the edge cases: S in {1, 17, 64, 256, 300} (300: a ragged
 # last tile), GQA groups 1, 2 and 8, D 16 and 64, float32 and bfloat16;
-# rmsnorm on one row, odd d and a row wider than 48 KB of dw partial;
-# the router at k = 1, k = E and on planted ties.  Shared by
-# chip_smoke.py and tests/test_torch_cuda.py.
+# for the bf16 D=64 wgmma kernel also peaked scores (q, k x 4: where
+# rounding P and dS to bf16 operands matters most), B=2 at S=300 and
+# group 8 at S=256 (ragged tiles, a group over several heads and tiles);
+# rmsnorm on one row, odd d, rows that are no multiple of the CTA count,
+# d = 2048 and 2056 (the edge of its warp-a-row instance and just past),
+# a width for each of that instance's register sizes (1, 2, 4 and 8
+# 16-byte units a lane, bf16 and f32) and a row wider than 48 KB of dw
+# partial; the router at k = 1, k = E
+# and on planted ties.  Shared by chip_smoke.py and
+# tests/test_torch_cuda.py.
 # --------------------------------------------------------------------------
 
 TRAIN_ATTN_CASES = (
@@ -606,12 +615,22 @@ TRAIN_ATTN_CASES = (
        for dt in ("bfloat16", "float32")]
     # the training path's shape: a microbatch of 4 sequences of 256
     + [("B=4 S=256 bfloat16 (training)", dict(b=4, hq=16, hkv=8, s=256,
-                                              d=64), "bfloat16")])
+                                              d=64), "bfloat16")]
+    + [("peaked scores S=256 bfloat16", dict(b=1, hq=16, hkv=8, s=256,
+                                             d=64, peak=4.0), "bfloat16")]
+    + [(f"B=2 S=300 {dt}", dict(b=2, hq=16, hkv=8, s=300, d=64), dt)
+       for dt in ("bfloat16", "float32")]
+    + [(f"GQA group 8 S=256 {dt}", dict(b=2, hq=16, hkv=2, s=256, d=64),
+        dt) for dt in ("bfloat16", "float32")])
 RMS_BWD_CASES = (
     [(f"{shape} {dt}", dict(shape=shape), dt)
      for shape in ((4, 256, 1024), (1, 1024), (5, 37), (3, 1031),
                    (64, 64), (2, 12288))
-     for dt in ("bfloat16", "float32")])
+     for dt in ("bfloat16", "float32")]
+    + [(f"{shape} {dt}", dict(shape=shape), dt)
+       for shape, dt in (((1000, 1024), "bfloat16"), ((300, 2048), "bfloat16"),
+                         ((300, 2056), "bfloat16"), ((300, 512), "bfloat16"),
+                         ((300, 256), "float32"), ((300, 512), "float32"))])
 ROUTER_BWD_CASES = [
     ("T=1024 E=32 k=8 (training)", dict(t=1024, e=32), 8),
     ("T=17 E=32 k=1", dict(t=17, e=32), 1),

@@ -16,7 +16,8 @@ by device in the same way.
 
 Each kernel is one CUDA C++ source `csrc/<name>.cu` with a plain C
 interface.  On first use it is compiled with `nvcc -shared` for sm_90a
-into `build/` at the repository root, named by a hash of its source, and
+into `build/` at the repository root, named by a hash of its source and
+of the headers in `csrc/` (`common.cuh`, `hopper.cuh`), and
 loaded with ctypes.  `build()` starts one `nvcc` per source, all at once.
 Every C entry point `<name>_launch` launches on the caller's stream and
 returns `cudaGetLastError()`; `launch()` declares its ctypes signature
@@ -144,8 +145,11 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes() \
-        + (CSRC / "common.cuh").read_bytes()
+    """The library of kernel `name`, named by a hash of its source, of
+    every header in `csrc/` (any of which it may include) and of the
+    compiler flags: an edit to any of them builds anew."""
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.name.encode() + h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
     return BUILD / f"lib{name}-{digest.hexdigest()[:12]}.so"
 

@@ -179,11 +179,14 @@ def _launch_bwd(q, k, v, o, do, lse, scale):
     common.require(do, "do", q.dtype, tuple(q.shape))
     common.require(lse, "lse", torch.float32, (b, hq, s))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    # Di for the CUDA-core kernels, or each 64-row q tile's lse and Di
+    # block (2 x 64 float32) for the wgmma kernel
+    scratch = torch.empty(b * hq * common.cdiv(s, 64) * 128,
+                          dtype=torch.float32, device=q.device)
     common.launch("flash_attention_bwd", [ctypes.c_void_p] * 10
                   + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int],
                   q.device, *(common.ptr(t) for t in (
-                      q, k, v, o, do, lse, dq, dk, dv, delta)),
+                      q, k, v, o, do, lse, dq, dk, dv, scratch)),
                   b, hq, hkv, s, d, scale, code)
     flash_attention_bwd.launches += 1
     return dq, dk, dv

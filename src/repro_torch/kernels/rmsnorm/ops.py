@@ -65,11 +65,13 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor,
 
 rmsnorm.launches = 0
 
-# the widest row the backward kernel takes: its dw partial row in shared
-# memory (csrc/rmsnorm_bwd.cu kMaxD)
+# the widest row the backward kernel takes: the dw partial row of its
+# CTA-a-row instance in shared memory (csrc/rmsnorm_bwd.cu kMaxD)
 BWD_MAX_D = 227 * 1024 // 4 - 16
-# rows a backward CTA takes: enough CTAs for two a streaming multiprocessor
-BWD_CTAS = 264
+# the backward's rows kernel: at most one CTA a streaming multiprocessor
+# of the H100, each taking a run of consecutive rows and writing one dw
+# partial row
+BWD_CTAS = 132
 
 
 def rmsnorm_bwd_ref(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,

@@ -1,6 +1,7 @@
 """Timing the port's kernels on the card, and their A/B between checkouts.
 
     python3 src/repro_torch/kernels/timing.py [--trees DIR ...] [--rounds R]
+                                              [--kernels NAME ...]
                                               [--out PATH]
     python3 src/repro_torch/kernels/timing.py --trace-misses ROUNDS
 
@@ -17,7 +18,9 @@ under a bool mask (its REPRO_NO_PACK=1 instance, where the checkout has
 it), `plane_commit`, and `trip_plan` without and with the remote
 co-schedule, and each one's replica instance (`*_many`) at R = 2 and
 64.  `serve_calls` gives the serving path's `rmsnorm` and
-`topk_router` at granite-moe-1b-a400m's decode and prefill shapes.
+`topk_router` at granite-moe-1b-a400m's decode and prefill shapes, and
+`train_calls` the training path's backward kernels `flash_attention_bwd`
+and `rmsnorm_bwd` at chip_smoke.py phase 5's training shapes.
 
 As a script it times those kernels, the simulator's at n=64 and n=256
 (device ms, eager ms, device operations a call), a line each, then all
@@ -28,6 +31,7 @@ process (`load_tree`: each keeps its own modules, kernel libraries and
 the order given (parent, change, change, parent compares two versions
 on one card), `--rounds` times over, then ends with each tree's medians
 and, for two trees, how many parent/change pairs the change wins.
+`--kernels` times only the kernels of those names.
 One process and fine turns, because the host's speed, and so every
 eager time, moves by half from one process, or one minute, to the next.
 Only the kernel wrappers and the case generators come from the
@@ -286,6 +290,47 @@ def serve_calls(C, RN, TR, device) -> list:
     return out
 
 
+# the training microbatch of chip_smoke.py phase 5 (granite-moe-1b-a400m,
+# 4 sequences of 256 tokens, bf16): attention q [4, 16, 256, 64] against
+# k/v [4, 8, 256, 64], rmsnorm x/dy [1024, 1024]
+TRAIN_ATTN = dict(b=4, hq=16, hkv=8, s=256, d=64)
+TRAIN_ROWS, TRAIN_D = 1024, 1024
+
+
+def train_calls(C, FA, RN, device) -> list:
+    """The training path's backward kernels at TRAIN_ATTN and [TRAIN_ROWS,
+    TRAIN_D], bf16: `flash_attention_bwd` (o and lse from the tree's own
+    training forward) and `rmsnorm_bwd`: [{name, shape, fn, plain, bytes,
+    ops}] (C, FA, RN: the `cases`, `flash_attention.ops` and
+    `rmsnorm.ops` modules)."""
+    import numpy as np
+    b, hq, hkv, s, d = (TRAIN_ATTN[k] for k in ("b", "hq", "hkv", "s", "d"))
+    q, k, v = (C.to_dtype(x, "bfloat16").to(device)
+               for x in C.attn_inputs(9, **TRAIN_ATTN))
+    rng = np.random.default_rng(9)
+    do = C.to_dtype(rng.standard_normal(tuple(q.shape)).astype(np.float32),
+                    "bfloat16").to(device)
+    o, lse = FA.flash_attention_lse(q, k, v)
+    x, w = C.rms_inputs(9, (TRAIN_ROWS, TRAIN_D))
+    x = C.to_dtype(x, "bfloat16").to(device)
+    w = C.to_dtype(w, "float32").to(device)
+    dy = C.to_dtype(rng.standard_normal(tuple(x.shape)).astype(np.float32),
+                    "bfloat16").to(device)
+    return [
+        dict(name="flash_attention_bwd",
+             shape=f"q [{b},{hq},{s},{d}] k/v [{b},{hkv},{s},{d}] bf16",
+             fn=lambda: FA.flash_attention_bwd(q, k, v, o, do, lse),
+             plain=lambda: FA.flash_attention_bwd_ref(q, k, v, o, do, lse),
+             # q, k, v, o, dO and lse in; dQ, dK, dV out
+             bytes=2 * d * s * b * (4 * hq + 4 * hkv) + 4 * b * hq * s,
+             ops=2.5 * 4 * d * b * hq * s * (s + 1) / 2),
+        dict(name="rmsnorm_bwd", shape=f"x/dy [{TRAIN_ROWS},{TRAIN_D}] bf16",
+             fn=lambda: RN.rmsnorm_bwd(x, w, dy),
+             plain=lambda: RN.rmsnorm_bwd_ref(x, w, dy),
+             bytes=3 * 2 * TRAIN_ROWS * TRAIN_D + 8 * TRAIN_D,
+             ops=10 * TRAIN_ROWS * TRAIN_D)]
+
+
 SIM_NS = (64, 256)
 # the kernels whose call is one device operation, by the name of their
 # __global__ function in torch.profiler's records (the replica instances
@@ -305,7 +350,8 @@ SERVE_KERNELS = ("rmsnorm", "topk_router")
 
 def load_tree(src: str) -> tuple:
     """(cases, selective_flush.ops, fused_turn.ops, rmsnorm.ops,
-    topk_router.ops) of the port under `src`, imported apart from any
+    topk_router.ops, flash_attention.ops) of the port under `src`,
+    imported apart from any
     tree loaded before: the modules of the earlier tree leave
     `sys.modules` first, and keep the modules they imported, so trees
     loaded in turn coexist in one process."""
@@ -316,31 +362,36 @@ def load_tree(src: str) -> tuple:
         return tuple(importlib.import_module(f"repro_torch.kernels.{m}")
                      for m in ("cases", "selective_flush.ops",
                                "fused_turn.ops", "rmsnorm.ops",
-                               "topk_router.ops"))
+                               "topk_router.ops", "flash_attention.ops"))
     finally:
         sys.path.pop(0)
 
 
-def time_trees(trees: list, rounds: int) -> list:
+def time_trees(trees: list, rounds: int, kernels=None) -> list:
     """Device and eager ms per call of the simulator's kernels at n in
-    SIM_NS and of the serving kernels at SERVE_SHAPES (`serve_calls`)
-    for each checkout in `trees` (`load_tree`; a path may repeat),
-    interleaved: each kernel and shape is timed `rounds` times over the
-    list of trees before the next, so the host's drift falls on every
-    tree alike.  One record a measurement; the device operations a call
-    makes (`device_ops`) are taken after every timing."""
+    SIM_NS, of the serving kernels at SERVE_SHAPES (`serve_calls`) and
+    of the training backward kernels (`train_calls`), or of those named
+    in `kernels`, for each checkout in `trees` (`load_tree`; a path may
+    repeat), interleaved: each kernel and shape is timed `rounds` times
+    over the list of trees before the next, so the host's drift falls on
+    every tree alike.  One record a measurement; the device operations a
+    call makes (`device_ops`) are taken after every timing."""
     import torch
     calls = {}
     for tree in trees:
         key = os.path.abspath(tree)
         if key not in calls:
-            C, SF, FT, RN, TR = load_tree(os.path.join(tree, "src"))
+            C, SF, FT, RN, TR, FA = load_tree(os.path.join(tree, "src"))
             dev = torch.device("cuda")
             calls[key] = {(c["name"], c["shape"]): dict(c, n=n)
                           for n in SIM_NS
                           for c in sim_calls(C, SF, FT, n, dev)}
             calls[key].update({(c["name"], c["shape"]): dict(c, n=None)
-                               for c in serve_calls(C, RN, TR, dev)})
+                               for c in serve_calls(C, RN, TR, dev)
+                               + train_calls(C, FA, RN, dev)})
+            if kernels:
+                calls[key] = {k: c for k, c in calls[key].items()
+                              if c["name"] in kernels}
     kinds = list(dict.fromkeys(k for per in calls.values() for k in per))
     recs = []
     for kind in kinds:
@@ -377,6 +428,8 @@ def main(argv=None) -> int:
                          "(default: this one)")
     ap.add_argument("--rounds", type=int, default=1,
                     help="time the list of trees this many times over")
+    ap.add_argument("--kernels", nargs="*", default=None,
+                    help="time only the kernels of these names")
     ap.add_argument("--out", default=None)
     ap.add_argument("--trace-misses", type=int, default=0, metavar="ROUNDS",
                     help="count torch.profiler's empty traces over ROUNDS "
@@ -395,7 +448,7 @@ def main(argv=None) -> int:
         return 0
     trees = args.trees or [os.path.abspath(os.path.join(here, "..", "..",
                                                         ".."))]
-    recs = time_trees(trees, args.rounds)
+    recs = time_trees(trees, args.rounds, args.kernels)
     medians = tree_medians(recs)
     for m in medians:
         print(f"median of {m['runs']} runs, {m['tree']}: {m['name']} "

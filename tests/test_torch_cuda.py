@@ -806,18 +806,43 @@ def test_topk_router_bwd_kernel_on_card(cuda, k):
 
 @pytest.mark.cuda
 def test_backward_kernels_are_bitwise_deterministic(cuda):
-    """No float atomics: two calls give the same bits."""
+    """No float atomics: two calls give the same bits (attention at a
+    ragged S and at the training shape B=4 S=256; rmsnorm at the training
+    width and at 12288, its CTA-a-row instance)."""
+    for s in (300, 256):
+        q, k, v = (C.to_dtype(x, "bfloat16").to(cuda)
+                   for x in C.attn_inputs(1, 4, 16, 8, s, 64))
+        o, lse = FA.flash_attention_lse(q, k, v)
+        do = torch.randn_like(q)
+        a, b = (FA.flash_attention_bwd(q, k, v, o, do, lse)
+                for _ in range(2))
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), s
+    for shape in ((1024, 1024), (64, 12288)):
+        x, w = (C.to_dtype(t, dt).to(cuda) for t, dt in zip(
+            C.rms_inputs(2, shape), ("bfloat16", "float32")))
+        dy = torch.randn_like(x)
+        a, b = (RN.rmsnorm_bwd(x, w, dy) for _ in range(2))
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), shape
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_raises_on_a_misaligned_tensor(cuda):
+    """The bf16 D=64 backward has one kernel, the `wgmma` one, which
+    needs every tensor 16-byte aligned: a q that starts 2 bytes into
+    its storage raises, and a later aligned call gives the same bits as
+    before it."""
     q, k, v = (C.to_dtype(x, "bfloat16").to(cuda)
-               for x in C.attn_inputs(1, 4, 16, 8, 300, 64))
+               for x in C.attn_inputs(1, 1, 4, 2, 64, 64))
     o, lse = FA.flash_attention_lse(q, k, v)
     do = torch.randn_like(q)
-    a, b = (FA.flash_attention_bwd(q, k, v, o, do, lse) for _ in range(2))
-    assert all(torch.equal(x, y) for x, y in zip(a, b))
-    x, w = (C.to_dtype(t, dt).to(cuda) for t, dt in zip(
-        C.rms_inputs(2, (1024, 1024)), ("bfloat16", "float32")))
-    dy = torch.randn_like(x)
-    a, b = (RN.rmsnorm_bwd(x, w, dy) for _ in range(2))
-    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    want = FA.flash_attention_bwd(q, k, v, o, do, lse)
+    off = torch.empty(q.numel() + 1, dtype=q.dtype,
+                      device=cuda)[1:].view(q.shape)
+    off.copy_(q)
+    with pytest.raises(RuntimeError, match="flash_attention_bwd"):
+        FA.flash_attention_bwd(off, k, v, o, do, lse)
+    got = FA.flash_attention_bwd(q, k, v, o, do, lse)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.cuda

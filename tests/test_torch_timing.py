@@ -93,3 +93,22 @@ def test_serve_calls_give_both_serving_kernels_at_both_shapes():
         assert c["bytes"] > 0 and c["ops"] > 0
     assert (RN.rmsnorm.launches, TR.topk_router.launches) == before
     assert set(timing.SERVE_KERNELS) <= set(timing.ONE_OP)
+
+
+def test_train_calls_give_both_backward_kernels_at_the_training_shape():
+    """flash_attention_bwd and rmsnorm_bwd at chip_smoke.py phase 5's
+    training microbatch; on the CPU each call takes the plain version (no
+    launch) and gives its result."""
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.rmsnorm import ops as RN
+    calls = timing.train_calls(C, FA, RN, torch.device("cpu"))
+    assert [(c["name"], c["shape"]) for c in calls] == [
+        ("flash_attention_bwd", "q [4,16,256,64] k/v [4,8,256,64] bf16"),
+        ("rmsnorm_bwd", "x/dy [1024,1024] bf16")]
+    before = (FA.flash_attention_bwd.launches, RN.rmsnorm_bwd.launches)
+    for c in calls:
+        for g, w in zip(c["fn"](), c["plain"]()):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+        assert c["bytes"] > 0 and c["ops"] > 0
+    assert (FA.flash_attention_bwd.launches, RN.rmsnorm_bwd.launches) \
+        == before
