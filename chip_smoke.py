@@ -22,15 +22,17 @@ Phases, each fatal on failure:
      `events`, `check_ok`, `check_fails`) against the JAX reference's
      golden files (`src/repro_torch/golden/<workload>.json`):
      kv_directory n=64 srsp/rsp/baseline on the fused engine at seed 4
-     (seed 0 was cut for phase 9's time), n=64 srsp on the serial and
-     batched engines, n=256 srsp
+     (seed 0 was cut for phase 9's time), n=64 srsp on the batched
+     engine (the serial one was cut for phase 10's time), n=256 srsp
      fused; reader_lock, producer_consumer and producer_consumer_mc at
      n=64 srsp/rsp/baseline fused, srsp batched, and n=16 srsp serial,
      rsp/baseline fused and the scope_only staleness demo (check red);
      worksteal (the paper's §5.1 harness) at n=64 seed 2 under all five
      scenarios fused and srsp batched, at n=16 seed 1 srsp serial and
      rsp/baseline/scope_only fused; kv_serving on the lock and queue
-     grid at seed 4, each cell replaying the request trace the reference
+     grid at seed 4 but its n=64 rsp fused and srsp batched cells
+     (`MAIN_SKIPPED`, cut for phase 10's time), each cell replaying the
+     request trace the reference
      generated for it (`golden/kv_serving_traces.npz`); each cell's
      `steady_s` and launches per run (a warm-up run before each
      workload's first cell only).  Then worksteal's app drivers,
@@ -58,7 +60,8 @@ Phases, each fatal on failure:
      for phase 9's time), with its `steady_s`, loop passes and drain_writeback /
      plane_commit launches per run logged (zeroed before each cell).
      Then the trace ring (`obs.trace`): the n=64 srsp fused cell of each
-     of the six workloads (worksteal at seed 2) run untraced and with
+     of five workloads (worksteal at seed 2; producer_consumer's was cut
+     for phase 10's time) run untraced and with
      `trace.with_trace` at TRACE_CAP slots, each timed once (the three
      alternated repeats of kv_directory and kv_serving were cut for phase
      9's time): each traced run's
@@ -73,12 +76,13 @@ Phases, each fatal on failure:
      the eager time of one traced `record_op` at n=64.
      Then the replica axis, in a child process (so that the process
      that traces with torch.profiler in phases 5 and 6 never runs the
-     replica engines): every cell of `golden/many.json` (the
+     replica engines): the cells of `golden/many.json` (the
      reference's `run_fused_many`/`run_batched_many` at n=64 over seeds 4
-     and 5: srsp fused for the five vmappable workloads, kv_serving on
-     its golden traces, kv_directory srsp batched and rsp/baseline
-     fused, producer_consumer_mc batched with and without
-     `faults.serialize_remote`) through `sweep.run_vmapped_cell`, after
+     and 5: srsp fused for four vmappable workloads, kv_serving on
+     its golden traces, kv_directory srsp batched, producer_consumer_mc
+     batched with and without `faults.serialize_remote`; kv_directory's
+     rsp/baseline fused and producer_consumer's cells, `MANY_SKIPPED`,
+     were cut for phase 10's time) through `sweep.run_vmapped_cell`, after
      one warm-up run, every lane held with `==`, with each cell's
      `steady_s_per_run`, `steady_s_per_replica`, trips and launches a
      run logged (`trip_plan_many` once a pass of the fused runs, the
@@ -116,9 +120,9 @@ Phases, each fatal on failure:
      every simulator kernel and replica instance must launch.  The same
      child then runs a full-width slice of the default sweep
      (`SWEEP_FULL_ARGV`: producer_consumer_mc and worksteal, srsp
-     batched and fused at n=64, worksteal's churned row, `pack_ab` at
-     64 WGs and `remote_batch_ab` at n=64 (`fuse_ab` at n=64 was cut
-     for phase 9's time), the reference's
+     batched and fused at n=64, worksteal's churned row and
+     `remote_batch_ab` at n=64 (`fuse_ab` at n=64 was cut for phase 9's
+     time, `pack_ab` at 64 WGs for phase 10's), the reference's
      seeds and timed calls) through `sweep.run_sweep`, each row held
      with `==` to the committed `BENCH_workloads.json` row of its label
      in makespan, counters, check_ok, check_fails and events;
@@ -144,7 +148,8 @@ Phases, each fatal on failure:
      weights) teacher-forced on `golden/granite_moe_serve.json`'s tokens,
      top-5 logits within GOLDEN_TOL of the JAX reference's and greedy
      tokens equal wherever the margin exceeds 2 * GOLDEN_TOL; (2) the
-     full 24-layer model, weights from a seeded torch.Generator on the
+     model at full width, depth 24 cut to SERVE_LAYERS (12, for phase
+     10's time), weights from a seeded torch.Generator on the
      card, Engine(max_len=512, slots=4) answering 8 requests (prompts of
      16-256 tokens, 32 new tokens each): in float32 token for token the
      serial one-request-at-a-time run, in bfloat16 (the timed run, with
@@ -188,7 +193,23 @@ Phases, each fatal on failure:
      time, idle share), then two runs of the same 2 steps, bitwise equal
      in loss and parameters; (4) `Trainer` at the golden size with a
      checkpoint every 2 steps and a failure at step 2: one restart, and
-     the final parameters bitwise the uninterrupted run's.
+     the final parameters bitwise the uninterrupted run's;
+ 10. serving the dense configs (`repro_torch.configs.qwen2_5_32b`,
+     `qwen1_5_32b`, `mistral_large_123b`: head dim 128, QKV bias in the
+     qwens, GQA groups 5, 1 and 12), in a child process, one model at a
+     time: (1) qwen2.5-32b's golden run (full width, depth 64 -> 2,
+     float32, numpy weights with nonzero QKV biases, ~10.1 GB) held to
+     `golden/qwen2_5_serve.json` as phase 7 (1) holds granite's; (2)
+     qwen2.5-32b at full width, depth 64 -> DENSE_TIMED_LAYERS (16),
+     bf16, `lm_init` on the card: phase 7's 8 requests through the
+     engine, equal to the serial run wherever its margin exceeds
+     BF16_MARGIN, with the dense kernels' launch counts set to 0 just
+     before and read just after; tokens/s, prefill ms, decode ms a step,
+     launches a step by kernel, device busy time and idle share; (3)
+     qwen1.5-32b and mistral-large-123b at full width, depth ->
+     DENSE_CHECK_LAYERS (2): 4 requests in float32, engine == serial run
+     token for token, then in bf16, equal wherever the serial margin
+     exceeds BF16_MARGIN; every dense kernel launched in every run.
 
 Phases 3 and 5 cover the training kernels too (`flash_attention`'s
 training instance `flash_attention_lse`, and `flash_attention_bwd`,
@@ -199,6 +220,19 @@ float32; one rmsnorm row, odd widths; router k = 1, k = E, ties); phase
 5 times them at the full run's microbatch shapes beside their bound, the
 plain versions and the backward of scaled_dot_product_attention and of
 F.rms_norm.
+
+Phases 3 and 5 cover the dense configs' instances too: phase 3 holds
+attention at D=128 (the bf16 wgmma kernel, two 64-column panels a tile;
+float32 on CUDA cores, 4 lanes a row) and decode at D=128, GQA groups 1,
+5 and 12 (clusters of at most 4 heads a kv-head), both types, to their
+plain versions, and checks that a bf16 D=128 q off 16 bytes and
+attention with grad on at D=128 raise; phase 5 times them at the dense
+serving shapes (`timing.dense_calls`: qwen2.5-32b's prefill of 256
+tokens, decode at 8 slots over 512-position caches for the three
+configs, rmsnorm at d 5120 and 12288) beside their bound and SDPA's or
+F.rms_norm's time; their kernels-line entries (`flash_attention[D=128]`,
+`flash_decode[D=128 group g]`, `rmsnorm[d=5120,12288]`) take their
+launches from phase 10's bf16 engine runs, the instances they time.
 
 Phases 3 and 5 cover the serving kernels too (rmsnorm, flash_attention,
 flash_decode, topk_router): phase 3 holds them to their plain versions
@@ -241,16 +275,33 @@ N_MAIN = 64                     # the paper's 64-CU GPU
 GOLDEN_TOL = 1e-3               # float32 logits, card vs the JAX CPU run
 BF16_MARGIN = 0.125             # 8 bf16 ulps of logits of size 2-4
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW = 4, 512, 32
+# phase 7's engine and serial runs of granite-moe-1b-a400m: depth 24 ->
+# 12 (cut to make room for phase 10; the golden run holds the full width)
+SERVE_LAYERS = 12
+# phase 10, the dense configs: qwen2.5-32b's timed run (bf16, depth 64 ->
+# 16, ~18.7 GB), and qwen1.5-32b's and mistral-large-123b's engine checks
+# (float32, then bf16, depth 64 and 88 -> 2, up to ~14.3 GB) on the first
+# requests
+DENSE_TIMED_LAYERS = 16
+DENSE_CHECK_LAYERS = 2
+DENSE_CHECK_REQUESTS = 4
 T = None                        # repro_torch.kernels.timing, set by main
 # phase 4: (workload, scenario, n_agents, seed, engine[, trace]); the
 # lock and queue workloads, worksteal and kv_serving run every cell of
 # their golden files, a kv_serving cell replaying the request trace the
 # reference generated for it (`trace`, in golden/kv_serving_traces.npz)
+# (kv_directory's n=64 serial cell, 6.7 s of steady time, was cut for
+# phase 10's time: the serial engine runs every n=16 serial cell below)
 KV_CELLS = ([("kv_directory", s, N_MAIN, 4, "fused")
              for s in ("srsp", "rsp", "baseline")]
-            + [("kv_directory", "srsp", N_MAIN, 4, "serial"),
-               ("kv_directory", "srsp", N_MAIN, 4, "batched"),
+            + [("kv_directory", "srsp", N_MAIN, 4, "batched"),
                ("kv_directory", "srsp", 256, 4, "fused")])
+# golden cells phase 4 leaves out, (workload, scenario, n, engine):
+# kv_serving's n=64 rsp fused and srsp batched cells (7.6 s and 6.4 s of
+# steady time; rsp and the batched engine run in every other workload's
+# n=64 grid and in kv_serving's n=16 cells), cut for phase 10's time
+MAIN_SKIPPED = (("kv_serving", "rsp", 64, "fused"),
+                ("kv_serving", "srsp", 64, "batched"))
 LOCK_QUEUE = ("reader_lock", "producer_consumer", "producer_consumer_mc")
 GOLDEN_WORKLOADS = LOCK_QUEUE + ("worksteal", "kv_serving")
 TRACES = os.path.join(ROOT, "src", "repro_torch", "golden",
@@ -292,9 +343,11 @@ SWEEP_TRACES = os.path.join(ROOT, "src", "repro_torch", "golden",
 # `remote_batch_ab` at 64 (`fuse_ab` at 64, 39.1 s of steady time on a
 # slow host, was cut for phase 9's time; the golden argv still holds it
 # at its sizes)
+# (`pack_ab` at 64, run in two grandchildren, was cut for phase 10's time;
+# the golden argv holds it at its sizes)
 SWEEP_FULL_ARGV = ["--workloads", "producer_consumer_mc", "worksteal",
                    "--scenarios", "srsp", "--sizes", "64", "--no-serving",
-                   "--pack-sizes", "64", "--remote-batch-sizes", "64",
+                   "--no-pack-ab", "--remote-batch-sizes", "64",
                    "--no-fuse-ab"]
 SWEEP_COMMITTED = os.path.join(ROOT, "BENCH_workloads.json")
 # phase 9, training granite-moe-1b-a400m: the full run's shape (24
@@ -506,7 +559,9 @@ def main_cells() -> list:
         (w, c["scenario"], c["n_agents"], c["seed"], c["engine"])
         + ((c["trace"],) if "trace" in c else ())
         for w in GOLDEN_WORKLOADS for c in load_golden(w)["cells"]
-        if c.get("traffic", "default") == "default"]
+        if c.get("traffic", "default") == "default"
+        and (w, c["scenario"], c["n_agents"], c["engine"])
+        not in MAIN_SKIPPED]
 
 
 def golden_cell(doc, scenario, n, seed, engine, trace=None) -> dict:
@@ -704,8 +759,11 @@ def run_churn(names=None, launch_counters=()) -> list:
 # (worksteal's at seed 2), traced with TRACE_CAP slots, held to
 # golden/trace.npz and golden/trace.json (the JAX reference's traces)
 TRACE_CAP = 4096
-TRACE_WORKLOADS = ("kv_directory",) + LOCK_QUEUE + ("worksteal",
-                                                    "kv_serving")
+# (producer_consumer's pair, 10.1 s of steady time, was cut for phase
+# 10's time: reader_lock and producer_consumer_mc keep the lock and queue
+# events in the ring)
+TRACE_WORKLOADS = ("kv_directory", "reader_lock", "producer_consumer_mc",
+                   "worksteal", "kv_serving")
 
 
 def load_trace_golden() -> tuple:
@@ -1201,6 +1259,16 @@ def bool_layout_child(torch, SF, FT) -> int:
     return 0
 
 
+# the cells of golden/many.json the replica child leaves out, (workload,
+# scenario, engine, fault): kv_directory's rsp and baseline fused cells
+# and producer_consumer's (6.0, 4.5 and 8.6 s a run), cut for phase 10's
+# time; the other workloads' srsp fused cells and kv_directory's batched
+# one keep every engine form on the replica axis
+MANY_SKIPPED = (("kv_directory", "rsp", "fused", None),
+                ("kv_directory", "baseline", "fused", None),
+                ("producer_consumer", "srsp", "fused", None))
+
+
 def replica_child(torch, SF, FT) -> int:
     """Phase 4's replica runs in a child process, so that the process
     that traces with torch.profiler (phases 5 and 6) never runs the
@@ -1209,7 +1277,10 @@ def replica_child(torch, SF, FT) -> int:
     just before each and read just after, one JSON line last."""
     counters = (SF.drain_writeback, SF.drain_writeback_many,
                 FT.plane_commit_many, FT.trip_plan_many)
-    many, launches = counted(counters, lambda: many_golden(counters))
+    cells = [c for c in load_golden("many")["cells"]
+             if (c["workload"], c["scenario"], c["engine"], c.get("fault"))
+             not in MANY_SKIPPED]
+    many, launches = counted(counters, lambda: many_golden(counters, cells))
     log(f"    launches in the replica cells: {launches}")
     scale = serving_replicas(counters)
     untraced = next(r for r in many if (r["workload"], r["scenario"],
@@ -1472,8 +1543,11 @@ def check_serving_kernels(torch, C, ops) -> dict:
                                                       name + "_ref")
         for k, case in enumerate(C.FLOAT_CASES[name]):
             rel, e = C.check_float(fn, plain, *C.float_args(name, k), dev)
-            errs[name] = max(errs.get(name, 0.0), e)
+            for key in (name, dense_key(name, case[1])):
+                if key:
+                    errs[key] = max(errs.get(key, 0.0), e)
             log(f"  {name} {case[0]}: rel err {rel:.3g}")
+    check_dense_refusals(torch, C, ops["flash_attention"])
     RN = ops["rmsnorm"]
     for k, case in enumerate(C.RMS_VIEW_CASES):
         rel, e = C.check_float(RN.rmsnorm, RN.rmsnorm_ref,
@@ -1488,6 +1562,125 @@ def check_serving_kernels(torch, C, ops) -> dict:
         log(f"  topk_router {case[0]}: weight err {e:.3g}, indices equal "
             f"on {decided}/{rows} decided rows")
     return errs
+
+
+# the dense configs' kernel instances (phases 3, 5 and 10): the kernels
+# line's name of each, and the configs whose phase-10 bf16 run launches
+# it
+DENSE_GROUPS = {5: "qwen2.5-32b", 1: "qwen1.5-32b", 12: "mistral-large-123b"}
+DENSE_RMS = "rmsnorm[d=5120,12288]"
+
+
+def dense_key(name: str, kw: dict):
+    """The dense instance a case of `C.FLOAT_CASES[name]` exercises (its
+    kernels-line name), or None."""
+    if name == "flash_attention" and kw["d"] == 128:
+        return "flash_attention[D=128]"
+    if name == "flash_decode" and kw["d"] == 128 \
+            and kw["hq"] // kw["hkv"] in DENSE_GROUPS:
+        return f"flash_decode[D=128 group {kw['hq'] // kw['hkv']}]"
+    if name == "rmsnorm" and kw["shape"][-1] in T.DENSE_RMS_D:
+        return DENSE_RMS
+    return None
+
+
+def dense_launched_by(key: str) -> list:
+    """The phase-10 engine runs that count `key`'s launches, all in
+    bfloat16, the type phase 5 times: attention's D=128 instance in
+    qwen2.5-32b's timed run, decode's group g in the run of that group's
+    config, rmsnorm at d 5120 and 12288 in all three."""
+    if key.startswith("flash_attention"):
+        names = ["qwen2.5-32b"]
+    elif key.startswith("flash_decode"):
+        names = [DENSE_GROUPS[int(key.split("group ")[1][:-1])]]
+    else:
+        names = list(DENSE_GROUPS.values())
+    return [f"{n} bfloat16" for n in names]
+
+
+def check_dense_refusals(torch, C, FA) -> None:
+    """Phase 3: what the dense instances do not take raises on the card,
+    and nothing falls back: a bf16 D=128 q off 16 bytes (TMA's rule; the
+    wgmma kernel is the only bf16 D=128 one) raises RuntimeError, and
+    attention with grad on at D=128 (no backward instance yet) raises
+    NotImplementedError before any launch."""
+    dev = torch.device("cuda")
+    q, k, v = (C.to_dtype(x, "bfloat16").to(dev)
+               for x in C.attn_inputs(1, 1, 10, 2, 64, 128))
+    want = FA.flash_attention(q, k, v)
+    off = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)[1:].view(
+        q.shape)
+    off.copy_(q)
+    try:
+        FA.flash_attention(off, k, v)
+    except RuntimeError as e:
+        log(f"  flash_attention bf16 D=128, q 2 bytes off 16: raises ({e})")
+    else:
+        raise AssertionError("flash_attention took a misaligned D=128 q")
+    if not torch.equal(FA.flash_attention(q, k, v), want):
+        raise AssertionError("flash_attention D=128 after a refusal differs")
+    before = FA.flash_attention_lse.launches
+    try:
+        FA.flash_attention(q.clone().requires_grad_(), k, v)
+    except NotImplementedError as e:
+        log(f"  flash_attention with grad at D=128: {e}")
+    else:
+        raise AssertionError("training attention at D=128 did not raise")
+    if FA.flash_attention_lse.launches != before:
+        raise AssertionError("training attention at D=128 launched")
+
+
+def measure_dense(torch, C, ops, errs) -> list:
+    """Phase 5, the dense configs' instances at their bfloat16 serving
+    shapes (`T.dense_calls`): device time per call of the kernel, of its
+    plain version and of one PyTorch call of the same function
+    (scaled_dot_product_attention, F.rms_norm), eager time, and the
+    bound (bytes over 3.35 TB/s or bf16 flops over 989 TFLOP/s; rmsnorm's
+    ops over 67 TOP/s).  `launches` is filled from phase 10."""
+    dev = torch.device("cuda")
+    FA, FD, RN = (ops[n] for n in ("flash_attention", "flash_decode",
+                                   "rmsnorm"))
+    out = {}
+    for call in T.dense_calls(C, FA, FD, RN, dev):
+        name = call["name"]
+        key = (DENSE_RMS if name == "rmsnorm" else
+               "flash_attention[D=128]" if name == "flash_attention" else
+               f"flash_decode[D=128 group {call['hq'] // call['hkv']}]")
+        b_ms, b_by = bound(call["bytes"], call["ops"],
+                           OPS_PER_S if name == "rmsnorm" else BF16_FLOPS)
+        rec = {"name": key, "route": "cuda",
+               "source": f"src/repro_torch/csrc/{name}.cu",
+               "replaces": SERVE_REPLACES[name], "launches": None,
+               "max_abs_err": errs[key], "ms": T.device_ms(call["fn"]),
+               "plain_ms": T.device_ms(call["plain"]), "bound_ms": b_ms,
+               "bound_by": b_by,
+               "library_ms": T.device_ms(call["library"]),
+               "shape": call["shape"], "eager_ms": T.eager_ms(call["fn"])}
+        if name == "flash_decode":
+            rec.update(clusters=T.DENSE_SLOTS * call["hkv"]
+                       * FD.sub_groups(call["hq"] // call["hkv"])[0],
+                       resident_clusters=FD.resident_clusters(
+                           call["hq"], call["hkv"], T.DENSE_MAX_LEN, 128,
+                           torch.bfloat16))
+        log(f"  {key} {call['shape']}: {rec['ms']:.5f} ms/call (plain "
+            f"{rec['plain_ms']:.5f}, library {rec['library_ms']:.5f}), "
+            f"eager {rec['eager_ms']:.5f} ms, bound {b_ms:.7f} ms ({b_by})"
+            + (f"; {rec['clusters']} clusters of 8 CTAs, "
+               f"{rec['resident_clusters']} resident at once"
+               if name == "flash_decode" else ""))
+        if key in out:           # rmsnorm's second width
+            out[key]["by_shape"].append(rec)
+        else:
+            out[key] = rec | {"by_shape": [rec]}
+    return list(out.values())
+
+
+# the TPU kernel each serving kernel replaces
+SERVE_REPLACES = {
+    "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:24",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:72",
+    "flash_decode": "src/repro/kernels/flash_decode/kernel.py:62",
+    "topk_router": "src/repro/kernels/topk_router/kernel.py:43"}
 
 
 def measure_serving(torch, C, ops, errs, prompt_lens) -> tuple:
@@ -1559,8 +1752,7 @@ def measure_serving(torch, C, ops, errs, prompt_lens) -> tuple:
         w_bf = w.to(bf)             # F.rms_norm takes the weight in x's type
         return lambda: F.rms_norm(x, (x.shape[-1],), w_bf, 1e-6)
 
-    by_shape("rmsnorm", "src/repro/kernels/rmsnorm/kernel.py:24",
-             rms_norm_call)
+    by_shape("rmsnorm", SERVE_REPLACES["rmsnorm"], rms_norm_call)
 
     # every prefill length of phase 7's prompts; the longest is the
     # kernel's entry, the others go to its `by_length`
@@ -1568,8 +1760,7 @@ def measure_serving(torch, C, ops, errs, prompt_lens) -> tuple:
     for s in sorted(set(prompt_lens)):
         q, k, v = (randn(1, 16, s, 64), randn(1, 8, s, 64),
                    randn(1, 8, s, 64))
-        entry("flash_attention",
-              "src/repro/kernels/flash_attention/kernel.py:72",
+        entry("flash_attention", SERVE_REPLACES["flash_attention"],
               f"q [1,16,{s},64] k/v [1,8,{s},64] bf16 causal (prefill)",
               lambda: FA.flash_attention(q, k, v),
               lambda: FA.flash_attention_ref(q, k, v),
@@ -1590,7 +1781,7 @@ def measure_serving(torch, C, ops, errs, prompt_lens) -> tuple:
     qd, kc, vc = randn(b, 16, 64), randn(b, 8, S, 64), randn(b, 8, S, 64)
     mask = (torch.arange(S, device=dev) < lens[:, None])[:, None, None, :]
     valid = int(lens.sum())
-    entry("flash_decode", "src/repro/kernels/flash_decode/kernel.py:62",
+    entry("flash_decode", SERVE_REPLACES["flash_decode"],
           f"q [{b},16,64] cache [{b},8,{S},64] bf16 kv_len "
           f"{lens.tolist()} (decode)",
           lambda: FD.flash_decode(qd, kc, vc, lens),
@@ -1604,7 +1795,7 @@ def measure_serving(torch, C, ops, errs, prompt_lens) -> tuple:
     log(f"    flash_decode launches {out[-1]['clusters']} clusters of 8 "
         f"CTAs; {out[-1]['resident_clusters']} fit on the card at once")
 
-    by_shape("topk_router", "src/repro/kernels/topk_router/kernel.py:43",
+    by_shape("topk_router", SERVE_REPLACES["topk_router"],
              lambda g, k: None,
              note=lambda g, k: {"two_call_ms": T.device_ms(
                  lambda: torch.softmax(g, -1).topk(k)),
@@ -1659,31 +1850,31 @@ def serve_requests(vocab: int) -> list:
             for n in lens]
 
 
-def serve_path(torch, counters) -> dict:
-    """Phase 7: the serving path of granite-moe-1b-a400m; `counters` are
-    the serving kernels' wrappers, whose launch counts are set to 0 just
-    before the timed bfloat16 engine run and read just after it."""
-    import dataclasses
-
+def serve_golden(torch, base=None, path=None) -> dict:
+    """The golden config of `base` (granite-moe-1b-a400m's CONFIG unless
+    named; `repro_torch.serve.golden`: full width, 2 layers, float32,
+    numpy weights) teacher-forced on the golden file's tokens (`path`,
+    granite's unless named), top-5 logits within GOLDEN_TOL of the JAX
+    reference's and greedy tokens equal wherever the margin exceeds
+    2 * GOLDEN_TOL; then the `Engine` on the golden's requests, its
+    tokens the golden's wherever the margin exceeds 2 * GOLDEN_TOL."""
     import numpy as np
 
     from repro_torch import convert
-    from repro_torch.configs import granite_moe_1b
     from repro_torch.models.registry import build
     from repro_torch.serve import golden as G
     from repro_torch.serve import reference
-    from repro_torch.serve.engine import Engine, Request, insert
+    from repro_torch.serve.engine import Engine, Request
     dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False   # float32 is float32
-    torch.backends.cudnn.allow_tf32 = False
-    rec = {}
-
-    # (1) the golden config, teacher-forced on the JAX reference's tokens
-    golden = G.load()
-    cfg = G.config()
+    golden = G.load(path or G.PATH)
+    cfg = G.config(base)
     model = build(cfg)
+    t0 = time.perf_counter()
     params = convert.lm_params_to_torch(convert.numpy_lm_params(cfg, G.SEED),
                                         dev, torch.float32)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    n_par = sum(x.numel() for x in _leaves(params))
     logits = [G.teacher_forced(model, params, r["prompt"], r["tokens"])
               for r in golden["requests"]]
     res = G.compare(golden, logits, GOLDEN_TOL)
@@ -1694,141 +1885,286 @@ def serve_path(torch, counters) -> dict:
     eng_div = [reference.divergence(e.out.tolist(), r["tokens"], m,
                                     2 * GOLDEN_TOL)
                for e, r, m in zip(eng, golden["requests"], margins)]
-    log(f"  (1) golden {cfg.name} {G.REDUCED}: {res['steps']} teacher-forced"
-        f" steps, top-5 max abs err {res['max_abs_err']:.3g} (tol "
-        f"{GOLDEN_TOL}), {res['near_ties']} steps with a top-1/top-2 margin"
-        f" <= {2 * GOLDEN_TOL}, greedy mismatches {res['mismatches']}; "
-        f"engine (slots={G.SLOTS}) divergences {eng_div}")
+    log(f"  golden {cfg.name} {G.reduced(base)} ({n_par / 1e9:.3f} B "
+        f"parameters, {load_s:.1f} s to draw and load): {res['steps']} "
+        f"teacher-forced steps, top-5 max abs err {res['max_abs_err']:.3g} "
+        f"(tol {GOLDEN_TOL}), {res['near_ties']} steps with a top-1/top-2 "
+        f"margin <= {2 * GOLDEN_TOL}, greedy mismatches "
+        f"{res['mismatches']}; engine (slots={G.SLOTS}) divergences "
+        f"{eng_div}")
     if res["max_abs_err"] > GOLDEN_TOL or res["mismatches"] or any(
             d is not None and not d[2] for d in eng_div):
-        raise AssertionError(f"the golden serving run disagrees: {res} "
-                             f"{eng_div}")
-    rec["golden"] = dict(res, engine_divergence=eng_div)
+        raise AssertionError(f"the golden serving run of {cfg.name} "
+                             f"disagrees: {res} {eng_div}")
     del params, logits
+    torch.cuda.empty_cache()
+    return dict(res, engine_divergence=eng_div, params=n_par)
 
-    # (2) the full model: engine against the serial run, f32 then bf16
-    reqs = serve_requests(granite_moe_1b.CONFIG.vocab)
+
+def engine_vs_serial(torch, model, params, reqs, counters=(),
+                     warm_up=False, slots=SERVE_SLOTS,
+                     max_len=SERVE_MAX_LEN) -> dict:
+    """`reqs` through the `Engine` (slots, max_len) and through the
+    serial one-request-at-a-time run: token for token equal in float32,
+    in bfloat16 wherever the serial top-1/top-2 margin exceeds
+    BF16_MARGIN; raises otherwise.  With `warm_up` one short request
+    runs first; the `counters`' launch counts are set to 0 just before
+    the engine run and read just after it."""
+    from repro_torch.serve import reference
+    from repro_torch.serve.engine import Engine, Request
+    dtype = model.cfg.dtype
+    serial = [reference.serial_generate(model, params, r.prompt,
+                                        r.max_new_tokens, max_len)
+              for r in reqs]
+    engine = Engine(model, params, max_len=max_len, slots=slots)
+    if warm_up:
+        engine.generate([Request(prompt=reqs[1].prompt, max_new_tokens=4)])
+    for f in counters:
+        f.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.generate([Request(prompt=r.prompt,
+                                   max_new_tokens=r.max_new_tokens)
+                           for r in reqs])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {f.__name__: f.launches for f in counters}
+    tol = 0.0 if dtype == "float32" else BF16_MARGIN
+    div = [reference.divergence(o.out.tolist(), s[0], s[1], tol)
+           for o, s in zip(out, serial)]
+    below = sum(m <= BF16_MARGIN for _, ms in serial for m in ms)
+    n_tok = sum(len(o.out) for o in out)
+    log(f"    engine slots={slots} max_len={max_len}, prompts "
+        f"{[len(r.prompt) for r in reqs]}: {n_tok} tokens in {wall:.3f} s; "
+        f"divergences from the serial run (step, margin, allowed): {div}; "
+        f"serial steps with margin <= {BF16_MARGIN}: {below}")
+    if any(d is not None and (dtype == "float32" or not d[2]) for d in div):
+        raise AssertionError(f"{model.cfg.name} {dtype} engine != serial "
+                             f"run: {div}")
+    return {"wall_s": wall, "tokens": n_tok, "tokens_per_s": n_tok / wall,
+            "divergence": div, "serial_steps_below_margin": below,
+            "launches": launches,
+            "first_tokens": [o.out[:8].tolist() for o in out]}
+
+
+def decode_profile(torch, model, params, reqs, counters=(),
+                   slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN) -> dict:
+    """Where the time goes: prefill ms of each request alone (B=1), the
+    decode step's ms over `slots` slots holding the first requests'
+    caches (a host clock over 20 steps after 3 warm-ups), the
+    `counters`' launches in one step, then one step and the longest
+    prompt's prefill under torch.profiler: device busy time, idle share,
+    kernel launches, the top kernels and the port's kernels."""
+    import numpy as np
+
+    from repro_torch.serve.engine import insert
+    dev = torch.device("cuda")
     lens = [len(r.prompt) for r in reqs]
+    pre = []
+    for r in reqs:
+        tok = torch.as_tensor(r.prompt[None].astype(np.int64), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, cache = model.prefill(params, {"tokens": tok})
+        torch.cuda.synchronize()
+        pre.append((time.perf_counter() - t0) * 1e3)
+    del cache
+    stacked = model.init_cache(slots, max_len, dev)
+    for i, r in enumerate(reqs[:slots]):
+        _, cache = model.prefill(params, {"tokens": torch.as_tensor(
+            r.prompt[None].astype(np.int64), device=dev)})
+        insert(stacked, model.grow_cache(cache, max_len), i)
+    del cache
+    kv = torch.tensor(lens[:slots], dtype=torch.int32, device=dev)
+    tok = torch.zeros((slots, 1), dtype=torch.long, device=dev)
+    moe = {"moe_groups": slots} if model.cfg.moe else {}
+
+    def step():
+        model.decode_step(params, stacked, tok, kv, **moe)
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    n_steps = 20
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    _, per_step = counted(counters, step)
+    busy_s, kernels = device_busy(torch, step)
+    idle = 1.0 - busy_s * 1e3 / step_ms
+    top = sorted(kernels, key=_dev_us, reverse=True)[:8]
+    # the longest prompt's prefill under the profiler: where the
+    # attention kernel's time sits in it
+    longest = max(range(len(reqs)), key=lambda i: lens[i])
+    ptok = torch.as_tensor(reqs[longest].prompt[None].astype(np.int64),
+                           device=dev)
+    pre_busy_s, pre_kernels = device_busy(
+        torch, lambda: model.prefill(params, {"tokens": ptok}))
+    rec = {"prefill_ms": pre, "decode_ms_per_step": step_ms,
+           "decode_launches_per_step": per_step,
+           "decode_busy_ms": busy_s * 1e3, "decode_idle_share": idle,
+           "decode_kernel_launches": sum(e.count for e in kernels),
+           "decode_top": [{"name": e.key[:60], "count": e.count,
+                           "device_ms": _dev_us(e) / 1e3} for e in top],
+           "decode_port_kernels": _port_kernels(kernels),
+           "prefill_longest_busy_ms": pre_busy_s * 1e3,
+           "prefill_longest_port_kernels": _port_kernels(pre_kernels)}
+    log(f"    prefill ms per request (prompt lengths {lens}): "
+        f"{[round(x, 3) for x in pre]}; decode {step_ms:.3f} ms per step "
+        f"({slots} slots); launches a step by kernel: {per_step}")
+    log(f"    one decode step under torch.profiler: device busy "
+        f"{busy_s * 1e3:.3f} ms of {step_ms:.3f} ms: idle share "
+        f"{idle:.4f}; {rec['decode_kernel_launches']} kernel launches")
+    for t in rec["decode_top"]:
+        log(f"    {t['device_ms']:9.3f} ms  x{t['count']:5d}  {t['name']}")
+    log(f"    the port's kernels in that step: "
+        f"{rec['decode_port_kernels']}")
+    log(f"    prefill of {lens[longest]} tokens under torch.profiler: "
+        f"device busy {rec['prefill_longest_busy_ms']:.3f} ms; the port's "
+        f"kernels: {rec['prefill_longest_port_kernels']}")
+    return rec
+
+
+def serve_path(torch, counters) -> dict:
+    """Phase 7: the serving path of granite-moe-1b-a400m; `counters` are
+    the serving kernels' wrappers, whose launch counts are set to 0 just
+    before the timed bfloat16 engine run and read just after it."""
+    import dataclasses
+
+    from repro_torch.configs import granite_moe_1b
+    from repro_torch.models.registry import build
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 is float32
+    torch.backends.cudnn.allow_tf32 = False
+    rec = {}
+
+    # (1) the golden config, teacher-forced on the JAX reference's tokens
+    log("  (1) the golden run")
+    rec["golden"] = serve_golden(torch)
+
+    # (2) the model at SERVE_LAYERS layers: engine against the serial run,
+    # f32 then bf16
+    reqs = serve_requests(granite_moe_1b.CONFIG.vocab)
     for dtype in ("float32", "bfloat16"):
-        cfg = dataclasses.replace(granite_moe_1b.CONFIG, dtype=dtype)
+        cfg = dataclasses.replace(granite_moe_1b.CONFIG, dtype=dtype,
+                                  n_layers=SERVE_LAYERS)
         model = build(cfg)
         t0 = time.perf_counter()
         params = model.init(0, dev)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         n_par = sum(x.numel() for x in _leaves(params))
-        serial = [reference.serial_generate(model, params, r.prompt,
-                                            r.max_new_tokens, SERVE_MAX_LEN)
-                  for r in reqs]
-        engine = Engine(model, params, max_len=SERVE_MAX_LEN,
-                        slots=SERVE_SLOTS)
-        if dtype == "bfloat16":
-            engine.generate([Request(prompt=reqs[1].prompt,
-                                     max_new_tokens=4)])   # warm-up
-            for f in counters:
-                f.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = engine.generate([Request(prompt=r.prompt,
-                                       max_new_tokens=r.max_new_tokens)
-                               for r in reqs])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {f.__name__: f.launches for f in counters}
-        tol = 0.0 if dtype == "float32" else BF16_MARGIN
-        div = [reference.divergence(o.out.tolist(), s[0], s[1], tol)
-               for o, s in zip(out, serial)]
-        below = sum(m <= BF16_MARGIN for _, ms in serial for m in ms)
-        n_tok = sum(len(o.out) for o in out)
         log(f"  (2) {cfg.name} {cfg.n_layers} layers {dtype}: "
-            f"{n_par / 1e9:.3f} B parameters, init {init_s:.2f} s; "
-            f"engine slots={SERVE_SLOTS} max_len={SERVE_MAX_LEN}, prompts "
-            f"{lens}: {n_tok} tokens in {wall:.3f} s; divergences from "
-            f"the serial run (step, margin, allowed): {div}; serial steps "
-            f"with margin <= {BF16_MARGIN}: {below}")
-        if any(d is not None and (dtype == "float32" or not d[2])
-               for d in div):
-            raise AssertionError(f"{dtype} engine != serial run: {div}")
-        rec[dtype] = {"wall_s": wall, "tokens": n_tok, "divergence": div,
-                      "serial_steps_below_margin": below,
-                      "init_s": init_s, "params": n_par,
-                      "first_tokens": [o.out[:8].tolist() for o in out]}
+            f"{n_par / 1e9:.3f} B parameters, init {init_s:.2f} s")
+        run = engine_vs_serial(torch, model, params, reqs,
+                               counters if dtype == "bfloat16" else (),
+                               warm_up=dtype == "bfloat16")
+        rec[dtype] = dict(run, init_s=init_s, params=n_par)
         if dtype == "float32":
-            del params, engine, serial, out
+            del params, model
             torch.cuda.empty_cache()
             continue
-        rec["launches"] = launches
-        rec["tokens_per_s"] = n_tok / wall
-        log(f"    launches in that run: {launches}")
-        if not all(launches.values()):
+        rec["launches"] = run["launches"]
+        rec["tokens_per_s"] = run["tokens_per_s"]
+        log(f"    launches in that run: {run['launches']}")
+        if not all(run["launches"].values()):
             raise AssertionError(f"a serving kernel never launched: "
-                                 f"{launches}")
+                                 f"{run['launches']}")
 
         # (3) where the time goes, bf16
-        pre = []
-        for r in reqs:
-            tok = torch.as_tensor(r.prompt[None].astype(np.int64),
-                                  device=dev)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _, cache = model.prefill(params, {"tokens": tok})
-            torch.cuda.synchronize()
-            pre.append((time.perf_counter() - t0) * 1e3)
-        stacked = model.init_cache(SERVE_SLOTS, SERVE_MAX_LEN, dev)
-        for i, r in enumerate(reqs[:SERVE_SLOTS]):
-            _, cache = model.prefill(params, {"tokens": torch.as_tensor(
-                r.prompt[None].astype(np.int64), device=dev)})
-            insert(stacked, model.grow_cache(cache, SERVE_MAX_LEN), i)
-        kv = torch.tensor(lens[:SERVE_SLOTS], dtype=torch.int32, device=dev)
-        tok = torch.zeros((SERVE_SLOTS, 1), dtype=torch.long, device=dev)
-
-        def step():
-            model.decode_step(params, stacked, tok, kv,
-                              moe_groups=SERVE_SLOTS)
-        for _ in range(3):
-            step()
-        torch.cuda.synchronize()
-        n_steps = 20
-        t0 = time.perf_counter()
-        for _ in range(n_steps):
-            step()
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
-        busy_s, kernels = device_busy(torch, step)
-        idle = 1.0 - busy_s * 1e3 / step_ms
-        top = sorted(kernels, key=_dev_us, reverse=True)[:8]
-        # the longest prompt's prefill under the profiler: where the
-        # attention kernel's time sits in it
-        ptok = torch.as_tensor(reqs[0].prompt[None].astype(np.int64),
-                               device=dev)
-        pre_busy_s, pre_kernels = device_busy(
-            torch, lambda: model.prefill(params, {"tokens": ptok}))
-        rec.update({"prefill_ms": pre, "decode_ms_per_step": step_ms,
-                    "decode_busy_ms": busy_s * 1e3, "decode_idle_share": idle,
-                    "decode_kernel_launches": sum(e.count for e in kernels),
-                    "decode_top": [{"name": e.key[:60], "count": e.count,
-                                    "device_ms": _dev_us(e) / 1e3}
-                                   for e in top],
-                    "decode_port_kernels": _port_kernels(kernels),
-                    "prefill_longest_busy_ms": pre_busy_s * 1e3,
-                    "prefill_longest_port_kernels": _port_kernels(
-                        pre_kernels)})
-        log(f"  (3) bf16 prefill ms per request (prompt lengths {lens}): "
-            f"{[round(x, 3) for x in pre]}; decode {step_ms:.3f} ms per "
-            f"step ({SERVE_SLOTS} slots); {rec['tokens_per_s']:.1f} "
-            f"tokens/s over the engine run")
-        log(f"    one decode step under torch.profiler: device busy "
-            f"{busy_s * 1e3:.3f} ms of {step_ms:.3f} ms: idle share "
-            f"{idle:.4f}; {rec['decode_kernel_launches']} kernel launches")
-        for t in rec["decode_top"]:
-            log(f"    {t['device_ms']:9.3f} ms  x{t['count']:5d}  "
-                f"{t['name']}")
-        log(f"    the port's kernels in that step: "
-            f"{rec['decode_port_kernels']}")
-        log(f"    prefill of {lens[0]} tokens under torch.profiler: device "
-            f"busy {rec['prefill_longest_busy_ms']:.3f} ms; the port's "
-            f"kernels: {rec['prefill_longest_port_kernels']}")
+        log(f"  (3) bf16: {rec['tokens_per_s']:.1f} tokens/s over the "
+            f"engine run")
+        rec.update(decode_profile(torch, model, params, reqs))
     return rec
+
+
+def dense_child(torch) -> int:
+    """Phase 10 in a child process: the dense configs on the card, one
+    model at a time, each freed before the next.  (1) qwen2.5-32b's
+    golden run (full width, 2 layers, float32, numpy weights with nonzero
+    QKV biases) held to golden/qwen2_5_serve.json; (2) qwen2.5-32b at
+    full width and DENSE_TIMED_LAYERS layers in bfloat16 (`lm_init` on
+    the card): phase 7's requests through the engine against the serial
+    run, the dense kernels' launch counts set to 0 just before the engine
+    run and read just after, then where the time goes; (3) qwen1.5-32b
+    and mistral-large-123b at full width and DENSE_CHECK_LAYERS layers:
+    DENSE_CHECK_REQUESTS requests in float32, engine == serial run token
+    for token, then in bfloat16, equal wherever the serial margin exceeds
+    BF16_MARGIN; every dense kernel launched in every run.  One JSON line
+    last, with the launches by config and type."""
+    import dataclasses
+
+    from repro_torch.configs import mistral_large_123b, qwen1_5_32b, \
+        qwen2_5_32b
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.flash_decode import ops as FD
+    from repro_torch.kernels.rmsnorm import ops as RN
+    from repro_torch.models.registry import build
+    from repro_torch.serve import golden as G
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 is float32
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    counters = (RN.rmsnorm, FA.flash_attention, FD.flash_decode)
+    t0 = time.perf_counter()
+
+    def part(msg):
+        log(f"  {msg}  [child at {time.perf_counter() - t0:.1f} s]")
+
+    part("(1) qwen2.5-32b golden")
+    golden = serve_golden(torch, qwen2_5_32b.CONFIG, G.QWEN_PATH)
+
+    part(f"(2) qwen2.5-32b, {DENSE_TIMED_LAYERS} layers, bfloat16")
+    cfg = dataclasses.replace(qwen2_5_32b.CONFIG, n_layers=DENSE_TIMED_LAYERS)
+    model = build(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    params = model.init(0, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t1
+    n_par = sum(x.numel() for x in _leaves(params))
+    log(f"    {n_par / 1e9:.3f} B parameters, init {init_s:.2f} s")
+    reqs = serve_requests(cfg.vocab)
+    timed = engine_vs_serial(torch, model, params, reqs, counters,
+                             warm_up=True)
+    launches = {f"{cfg.name} bfloat16": timed["launches"]}
+    log(f"    {timed['tokens_per_s']:.1f} tokens/s over the engine run; "
+        f"launches in it: {timed['launches']}")
+    timed.update(decode_profile(torch, model, params, reqs, counters),
+                 init_s=init_s, params=n_par,
+                 peak_memory=torch.cuda.max_memory_allocated())
+    del params, model
+    torch.cuda.empty_cache()
+
+    checks = {}
+    for base in (qwen1_5_32b.CONFIG, mistral_large_123b.CONFIG):
+        for dtype in ("float32", "bfloat16"):
+            part(f"(3) {base.name}, {DENSE_CHECK_LAYERS} layers, {dtype}")
+            cfg = dataclasses.replace(base, n_layers=DENSE_CHECK_LAYERS,
+                                      dtype=dtype)
+            model = build(cfg)
+            params = model.init(0, dev)
+            n_par = sum(x.numel() for x in _leaves(params))
+            n_bytes = sum(x.numel() * x.element_size()
+                          for x in _leaves(params))
+            log(f"    {n_par / 1e9:.3f} B parameters "
+                f"({n_bytes / 2**30:.2f} GiB)")
+            run = engine_vs_serial(
+                torch, model, params,
+                serve_requests(cfg.vocab)[:DENSE_CHECK_REQUESTS], counters)
+            launches[f"{cfg.name} {dtype}"] = run["launches"]
+            log(f"    launches in the engine run: {run['launches']}")
+            checks[f"{cfg.name} {dtype}"] = dict(run, params=n_par)
+            del params, model
+            torch.cuda.empty_cache()
+    for name, counts in launches.items():
+        if not all(counts.values()):
+            raise AssertionError(f"a dense kernel never launched in "
+                                 f"{name}'s run: {counts}")
+    part("done")
+    print(json.dumps({"golden": golden, "timed": timed, "checks": checks,
+                      "launches": launches}))
+    return 0
 
 
 # the __global__ functions of csrc/ that the serving path launches
@@ -2419,6 +2755,8 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--train-child", action="store_true",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--dense-child", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2449,6 +2787,8 @@ def main(argv=None) -> int:
         return sweep_child(SF, FT)
     if args.train_child:
         return train_child(torch)
+    if args.dense_child:
+        return dense_child(torch)
     t_start = time.perf_counter()
 
     smi = nvidia_smi()
@@ -2548,9 +2888,10 @@ def main(argv=None) -> int:
     # the serving kernels first: `measure` traces, and no time is taken
     # after a trace in this phase
     serving, one_op = measure_serving(torch, C, serve_ops, errs, lens)
+    dense = measure_dense(torch, C, serve_ops, errs)
     training = measure_training(torch, C, FA, RN, TR, errs)
     kernels = measure(torch, C, SF, FT, errs, launches) + serving \
-        + training
+        + dense + training
     check_one_op(one_op)
 
     phase(t_start, "[6] where the time goes: one fused n=64 srsp "
@@ -2566,7 +2907,7 @@ def main(argv=None) -> int:
                 TR.topk_router]
     serve = serve_path(torch, counters)
     for rec in kernels:
-        if rec["launches"] is None and rec["name"] not in TRAIN_KERNELS:
+        if rec["launches"] is None and rec["name"] in serve["launches"]:
             rec["launches"] = serve["launches"][rec["name"]]
 
     phase(t_start, "[8] cross-pod delta sync: make_pod_sync, 4 pods "
@@ -2583,6 +2924,18 @@ def main(argv=None) -> int:
     if not all(train["launches"][n] for n in TRAIN_KERNELS):
         raise AssertionError(f"a training kernel never launched: "
                              f"{train['launches']}")
+
+    phase(t_start, "[10] dense serving: qwen2.5-32b (golden, timed), "
+                   "qwen1.5-32b and mistral-large-123b, in a child process")
+    dense_run = run_child("--dense-child", "dense", timeout=600)
+    for rec in kernels:
+        if rec["name"] in [r["name"] for r in dense]:
+            base = rec["name"].split("[")[0]
+            rec["launches"] = sum(dense_run["launches"][c][base]
+                                  for c in dense_launched_by(rec["name"]))
+    if not all(rec["launches"] for rec in kernels):
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{[r['name'] for r in kernels if not r['launches']]}")
     t_end = time.perf_counter()
     total_s = t_end - t_start
     for msg, secs in phase_times(t_end):
@@ -2605,7 +2958,7 @@ def main(argv=None) -> int:
                        "bool_layout": bool_run, "sweep": sweep_run,
                        "kernels": kernels, "profile": prof,
                        "serve": serve, "delta_sync": sync_recs,
-                       "train": train,
+                       "train": train, "dense": dense_run,
                        "total_s": total_s,
                        "phases": phase_times(t_end),
                        "ptxas": reports}, f, indent=1)

@@ -3,7 +3,7 @@
 `ModelConfig` and `MoECfg` carry the fields of the JAX package's
 dataclasses, with the same names and defaults, so a config reads the
 same in both packages.  The port builds the dense and MoE families with
-GQA attention; a config that needs multi-head latent attention, an SSM
+GQA attention (QKV bias included); a config that needs multi-head latent attention, an SSM
 or xLSTM stack, an encoder, image patches or multi-token prediction
 raises `NotImplementedError` from `unsupported()` (ROADMAP Queue A 16).
 """
@@ -76,7 +76,6 @@ def unsupported(cfg: ModelConfig) -> None:
         ("layernorm", cfg.norm != "rmsnorm"),
         ("the gelu MLP", cfg.act != "swiglu"),
         ("shared experts", cfg.moe is not None and cfg.moe.n_shared > 0),
-        ("QKV bias", cfg.qkv_bias),
     ) if used]
     if missing:
         raise NotImplementedError(

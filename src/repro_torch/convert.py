@@ -110,7 +110,12 @@ def numpy_lm_params(cfg: ModelConfig, seed: int = 0) -> dict:
     in `repro.models.transformer.lm_init`'s layout and distributions:
     embeddings normal * 0.02, dense and expert weights uniform in
     +-sqrt(1/d_in), norms ones.  Leaves are drawn whole, stacked layers
-    at once, in the order written here."""
+    at once, in the order written here.
+
+    With `cfg.qkv_bias` the attention's `bias_q`, `bias_k` and `bias_v`
+    are drawn too, after `wo`, uniform in +-sqrt(1/d_model): nonzero,
+    unlike `lm_init`'s zeros, so that a comparison on these weights
+    would catch a bias left out."""
     rng = np.random.default_rng(seed)
     d, hd = cfg.d_model, cfg.hd
     h, hkv = cfg.n_heads, cfg.n_kv_heads
@@ -126,6 +131,10 @@ def numpy_lm_params(cfg: ModelConfig, seed: int = 0) -> dict:
                       "wv": uni((n, d, hkv * hd), d),
                       "wo": uni((n, h * hd, d), h * hd)},
              "norm2": np.ones((n, d), np.float32)}
+        if cfg.qkv_bias:
+            p["attn"].update(bias_q=uni((n, h * hd), d),
+                             bias_k=uni((n, hkv * hd), d),
+                             bias_v=uni((n, hkv * hd), d))
         if kind == "moe":
             m = cfg.moe
             e, f = m.n_experts, m.d_expert

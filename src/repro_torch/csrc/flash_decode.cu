@@ -20,10 +20,11 @@
 // card's ratio, so it stays on CUDA cores; what the card offers here is
 // parallelism and wide loads.
 //
-// Design: a cluster of 8 CTAs per (batch row, kv-head), each computing
-// the whole group of q-heads that shares the kv-head, so each K and V row
-// is read once for the group.  Cluster rank r takes the fixed contiguous
-// share [r*c, min(n, (r+1)*c)) of the valid prefix n = clamp(kv_len, 0, S),
+// Design: a cluster of 8 CTAs per (batch row, kv-head, sub-group), each
+// computing the sub-group of q-heads that shares the kv-head (the whole
+// group up to 4 heads, see below), so each K and V row is read once for
+// the sub-group.  Cluster rank r takes the fixed contiguous share
+// [r*c, min(n, (r+1)*c)) of the valid prefix n = clamp(kv_len, 0, S),
 // c = ceil(n / 8).  Because p is normalised before it is rounded, every
 // share needs the row's global max and sum before P.V; the cluster's
 // distributed shared memory gives both in the one launch:
@@ -54,11 +55,21 @@
 // another's shared memory, so the others may exit while rank 0 adds.
 // The sum over shares equals the one-pass sum of exp(s - m) up to float32
 // rounding (a few ulps), far inside the tolerances of kernels/cases.py.
-// Register arrays are sized by the next power of two >= group (1, 2, 4
-// or 8): sized for 8 heads a thread needs ~126 registers and the decode
-// step's 32 clusters no longer fit on the card at once (a second wave,
-// twice the time); at granite's group of 2 it needs under 80, and all
-// of them fit (`flash_decode_resident_clusters` below says how many).
+// Register arrays are sized by the next power of two >= the heads a
+// cluster computes (1, 2 or 4).  A GQA group of more than DEC_MAX_GROUP =
+// 4 heads is split into the fewest sub-groups of at most 4, as equal as
+// they come (qwen2.5-32b's 5 as 3 + 2, mistral-large-123b's 12 as 4 + 4
+// + 4), each a cluster of its own with the same 8-way split of the
+// prefix: the cache is read once a sub-group (from L2 after the first),
+// and a thread needs ~80 registers, where arrays for 8 heads take 128
+// and let 30 clusters be resident, against 45.  The cap of 4 was chosen
+// on an NVIDIA H100 80GB HBM3 at 700 W, bf16, B=8, S=512, D=128, from
+// builds of this file with the cap at 2, 4, 8 and 16 (PERF.md §6, chip
+// call 4 of the dense slice): clusters of at most 4 heads 30.8 us at
+// group 5 and 54.4 at group 12; of at most 8 (6 + 6) 38.0 and 68.3; of
+// at most 2 36.4 and 70.4; one cluster of up to 16 heads a kv-head (213
+// registers, 15 resident) 37.9 and 109.3; group 1 takes 48.6-48.7 in
+// all four.
 // Invariants: a row's output depends only on that row's (q, k, v, kv_len)
 // (not on B, the other rows or the row's slot), and it is bitwise the same
 // from run to run: every sum has a fixed order and no float atomics are
@@ -73,7 +84,7 @@
 
 #define DEC_THREADS 256
 #define DEC_WARPS (DEC_THREADS / 32)
-#define DEC_MAX_GROUP 8
+#define DEC_MAX_GROUP 4      // heads a cluster computes; more split
 #define DEC_CLUSTER 8
 #define DEC_PRE 2            // passes whose K and V rows load up front
 
@@ -160,15 +171,20 @@ __launch_bounds__(DEC_THREADS)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int32_t* __restrict__ kv_len,
               T* __restrict__ out, int Hq, int Hkv, int S, int D,
-              float scale) {
+              int nsub, float scale) {
   constexpr int VEC = 16 / sizeof(T);     // elements in one 16-byte load
   extern __shared__ float smem[];
-  static_assert(G <= DEC_WARPS, "one warp per head of the group");
+  static_assert(G <= DEC_WARPS, "one warp per head of the sub-group");
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const int pair = blockIdx.x / DEC_CLUSTER;
+  // cluster (row b, kv-head kvh, sub-group sub): the sub-group's heads
+  // are the q-heads sub*gs .. of the kv-head's group, at most G of them
+  const int cl = blockIdx.x / DEC_CLUSTER;
+  const int pair = cl / nsub, sub = cl - (cl / nsub) * nsub;
   const int b = pair / Hkv, kvh = pair - (pair / Hkv) * Hkv;
-  const int group = Hq / Hkv;
+  const int group_all = Hq / Hkv;
+  const int gs = (group_all + nsub - 1) / nsub;
+  const int group = min(gs, group_all - sub * gs);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n = min(max(kv_len[b], 0), S);
   const int chunk = (n + DEC_CLUSTER - 1) / DEC_CLUSTER;
@@ -204,7 +220,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       vr[u] = __ldg(vb + static_cast<long long>(pos) * row_vecs);
     }
   }
-  const long long head0 = static_cast<long long>(b) * Hq + kvh * group;
+  const long long head0 = static_cast<long long>(b) * Hq + kvh * group_all
+      + sub * gs;
   float qv[G][VEC];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
@@ -339,39 +356,51 @@ size_t smem_bytes(int group, int D, int S) {
          + static_cast<size_t>(repro_cdiv(S, DEC_CLUSTER)) + 2 * DEC_CLUSTER);
 }
 
-// f(std::integral_constant<int, G>) for the kernel instance of a group:
-// register arrays sized by the next power of two >= the group
+// clusters a (row, kv-head) pair: a group of more than DEC_MAX_GROUP heads
+// splits into the fewest sub-groups of at most DEC_MAX_GROUP, as equal as
+// they come (12 -> 4 + 4 + 4), each a cluster that reads the pair's cache
+int n_sub(int group) { return (group + DEC_MAX_GROUP - 1) / DEC_MAX_GROUP; }
+// heads of the largest sub-group: what the kernel instance and the
+// shared memory are sized by
+int sub_group(int group) {
+  return (group + n_sub(group) - 1) / n_sub(group);
+}
+
+// f(std::integral_constant<int, G>) for the kernel instance of a
+// (sub-)group: register arrays sized by the next power of two >= it
 template <typename F>
 int by_group(int group, F f) {
   if (group <= 1) return f(std::integral_constant<int, 1>());
   if (group <= 2) return f(std::integral_constant<int, 2>());
-  if (group <= 4) return f(std::integral_constant<int, 4>());
-  return f(std::integral_constant<int, 8>());
+  return f(std::integral_constant<int, 4>());
 }
 
 template <typename T>
 int launch_typed(const void* q, const void* k, const void* v,
                  const void* kv_len, void* out, int B, int Hq, int Hkv, int S,
                  int D, float scale, cudaStream_t s) {
-  return by_group(Hq / Hkv, [&](auto g) {
+  const int nsub = n_sub(Hq / Hkv), gs = sub_group(Hq / Hkv);
+  return by_group(gs, [&](auto g) {
     constexpr int G = decltype(g)::value;
-    const size_t smem = smem_bytes(Hq / Hkv, D, S);
+    const size_t smem = smem_bytes(gs, D, S);
     if (smem > 48 * 1024) {
       const cudaError_t err = cudaFuncSetAttribute(
           decode_kernel<T, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(smem));
       if (err != cudaSuccess) return static_cast<int>(err);
     }
-    decode_kernel<T, G><<<B * Hkv * DEC_CLUSTER, DEC_THREADS, smem, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const int32_t*>(kv_len),
-        static_cast<T*>(out), Hq, Hkv, S, D, scale);
+    decode_kernel<T, G>
+        <<<B * Hkv * nsub * DEC_CLUSTER, DEC_THREADS, smem, s>>>(
+            static_cast<const T*>(q), static_cast<const T*>(k),
+            static_cast<const T*>(v), static_cast<const int32_t*>(kv_len),
+            static_cast<T*>(out), Hq, Hkv, S, D, nsub, scale);
     return static_cast<int>(cudaGetLastError());
   });
 }
 
 template <typename T>
 int resident_typed(int group, int D, int S) {
+  group = sub_group(group);
   return by_group(group, [&](auto g) {
     constexpr int G = decltype(g)::value;
     cudaLaunchConfig_t cfg = {};
@@ -393,9 +422,9 @@ int resident_typed(int group, int D, int S) {
 
 // q [B, Hq, D], k/v [B, Hkv, S, D] (float32 or bfloat16 by `dtype`, all
 // one type, k and v 16-byte aligned), kv_len [B] int32, out [B, Hq, D] of
-// q's type; Hq % Hkv == 0, Hq / Hkv <= DEC_MAX_GROUP; D * sizeof(T) / 16 a
-// power of two <= 32; shared memory 4 * group * (16 * D + ceil(S/8) + 16)
-// bytes within the card's 227 KB.
+// q's type; Hq % Hkv == 0 (a group above DEC_MAX_GROUP in sub-groups);
+// D * sizeof(T) / 16 a power of two <= 32; shared memory 4 * gs * (16 * D
+// + ceil(S/8) + 16) bytes within the card's 227 KB, gs the sub-group.
 REPRO_EXPORT int flash_decode_launch(const void* q, const void* k,
                                      const void* v, const void* kv_len,
                                      void* out, int B, int Hq, int Hkv,
@@ -403,7 +432,7 @@ REPRO_EXPORT int flash_decode_launch(const void* q, const void* k,
                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int lanes = D * (dtype == 0 ? 4 : 2) / 16;
-  if (Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > DEC_MAX_GROUP || D <= 0
+  if (Hkv <= 0 || Hq % Hkv != 0 || D <= 0
       || lanes * 16 != D * (dtype == 0 ? 4 : 2) || lanes > 32
       || (lanes & (lanes - 1)) != 0) {
     return cudaErrorInvalidValue;
@@ -420,7 +449,7 @@ REPRO_EXPORT int flash_decode_launch(const void* q, const void* k,
 // memory (a launch of more clusters runs in waves); -1 on error
 REPRO_EXPORT int flash_decode_resident_clusters(int Hq, int Hkv, int S, int D,
                                                 int dtype) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > DEC_MAX_GROUP) return -1;
+  if (Hkv <= 0 || Hq % Hkv != 0) return -1;
   return dtype == 0 ? resident_typed<float>(Hq / Hkv, D, S)
                     : resident_typed<__nv_bfloat16>(Hq / Hkv, D, S);
 }

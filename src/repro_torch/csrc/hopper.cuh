@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the wgmma attention kernels
 // (`flash_attention.cu`, `flash_attention_bwd.cu`): mbarriers, TMA loads
 // (tiles through a tensor map, flat runs of bytes), the 128-byte-swizzle
-// shared-memory descriptor, the two m64n64k16 bf16 `wgmma` forms, and the
-// [heads, S, 64] bf16 tensor map built through the runtime.
+// shared-memory descriptor, the two m64n64k16 bf16 `wgmma` forms and the
+// m64n128k16 register-A form, and the [heads, S, D] bf16 tensor map built
+// through the runtime.
 //
 // Tiles are 64 rows x 64 bf16 (128 bytes a row, 8 KB), written by TMA
 // with the 128-byte swizzle and read by `wgmma` through `sw128_desc`:
@@ -14,6 +15,13 @@
 //     units (2048 bytes).
 // One tile serves as either form, so a Q, K, V or dO tile feeds both a
 // product that reduces over D and one that reduces over its rows.
+//
+// At D = 128 a tile of 64 rows is two such panels, columns 0-63 and
+// 64-127, 8 KB apart (the 128-byte swizzle takes at most 64 bf16 a box
+// row): a product reducing over D takes k-steps 0-3 from the first panel's
+// descriptor and 4-7 from the second's; the MN-major B operand of an
+// m64n128 product reaches the second panel through its leading byte
+// offset, sw128_desc(tile, 8192, 1024).
 //
 // Accumulator fragment of an m64n64 product, thread (warp w of the
 // warpgroup, lane): element i (of 32) sits at row w*16 + lane/4 +
@@ -69,6 +77,20 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0),
+         "r"(row), "r"(head)
+      : "memory");
+}
+
+// one 64 x 64 box of a 3-D tensor map at (col, row, head) into `dst`: the
+// panel of columns col..col+63 of a row block
+__device__ __forceinline__ void tma_load_at(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int col, int row,
+                                            int head) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col),
          "r"(row), "r"(head)
       : "memory");
 }
@@ -150,6 +172,42 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
+// the m64n128 accumulator: 64 floats a thread, element i at row w*16 +
+// lane/4 + 8*((i>>1)&1), column (i>>2)*8 + (lane&3)*2 + (i&1)
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+#define FW_D64(d)                                                          \
+  FW_D32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),           \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),     \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),     \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),     \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),     \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),     \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define FW_DREGS64                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63}"
+
+// d += A . B, m64n128k16, A in registers (the same fragment as the n64
+// form's), B MN-major in shared memory: 128 columns, two 64-column panels
+// `LBO` bytes apart
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0,
+                                              uint32_t a1, uint32_t a2,
+                                              uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FW_DREGS64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : FW_D64(d)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -183,14 +241,16 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// [heads, S, 64] bf16 as a 3-D map of 64 x 64 boxes, 128-byte swizzle;
-// rows past S read as zeros inside each head, never as the next head's
+// [heads, S, D] bf16 (D 64 or 128) as a 3-D map of 64 x 64 boxes,
+// 128-byte swizzle; rows past S read as zeros inside each head, never as
+// the next head's
 bool encode_map(EncodeTiled enc, CUtensorMap* map, const void* ptr,
-                int heads, int S) {
-  const cuuint64_t dims[3] = {64, static_cast<cuuint64_t>(S),
+                int heads, int S, int D = 64) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(heads)};
-  const cuuint64_t strides[2] = {64 * 2,
-                                 static_cast<cuuint64_t>(S) * 64 * 2};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(S) * D * 2};
   const cuuint32_t box[3] = {64, 64, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,

@@ -434,7 +434,21 @@ ATTN_CASES = (
         "float32")]
     # the timed prefill shape (phase 5 of chip_smoke.py)
     + [(f"S=256 {dt}", dict(b=1, hq=16, hkv=8, s=256, d=64), dt)
-       for dt in ("bfloat16", "float32")])
+       for dt in ("bfloat16", "float32")]
+    # D=128, the dense configs' head dim, at their GQA groups: 1
+    # (qwen1.5-32b), 5 (qwen2.5-32b) and 12 (mistral-large-123b), at the
+    # edges of a 64-row tile; S <= 128, which the TPU kernel takes whole
+    + [(f"D=128 group {g} S={s} {dt}", dict(b=1, hq=hq, hkv=hkv, s=s,
+                                            d=128), dt)
+       for g, hq, hkv, s in ((1, 4, 4, 65), (5, 10, 2, 17), (5, 10, 2, 128),
+                             (12, 12, 1, 100))
+       for dt in ("float32", "bfloat16")]
+    # qwen2.5-32b's timed prefill (40/8, S=256), and a ragged S over
+    # several tiles at B=2
+    + [(f"D=128 40/8 S=256 {dt}", dict(b=1, hq=40, hkv=8, s=256, d=128), dt)
+       for dt in ("bfloat16", "float32")]
+    + [("D=128 B=2 10/2 S=300 bfloat16", dict(b=2, hq=10, hkv=2, s=300,
+                                              d=128), "bfloat16")])
 DECODE_CASES = (
     [(f"B=4 S=512 {dt}", dict(b=4, hq=16, hkv=8, s=512, d=64), dt)
      for dt in ("float32", "bfloat16")]
@@ -448,7 +462,21 @@ DECODE_CASES = (
         dict(b=5, hq=16, hkv=8, s=64, d=64, lens=(7, 8, 9, 1, 64)), dt)
        for dt in ("bfloat16", "float32")]
     + [("B=3 S=24 SMOKE kv_len 7,8,9 float32",
-        dict(b=3, hq=4, hkv=2, s=24, d=16, lens=(7, 8, 9)), "float32")])
+        dict(b=3, hq=4, hkv=2, s=24, d=16, lens=(7, 8, 9)), "float32")]
+    # D=128 at the dense configs' groups 1, 5 and 12 (clusters of at most
+    # 4 heads a kv-head: 5 as 3 + 2, 12 as 4 + 4 + 4), then their serving
+    # shapes (B=8, S=512: 40/40, 40/8, 96/8) and group 12 at the split's
+    # edges
+    + [(f"D=128 group {g} B=4 S=512 {dt}", dict(b=4, hq=hq, hkv=hkv, s=512,
+                                                d=128), dt)
+       for g, hq, hkv in ((1, 4, 4), (5, 10, 2), (12, 24, 2))
+       for dt in ("float32", "bfloat16")]
+    + [(f"D=128 {hq}/{hkv} B=8 S=512 bfloat16 (decode)",
+        dict(b=8, hq=hq, hkv=hkv, s=512, d=128), "bfloat16")
+       for hq, hkv in ((40, 40), (40, 8), (96, 8))]
+    + [(f"D=128 group 12 B=5 S=64 kv_len 7,8,9,1,64 {dt}",
+        dict(b=5, hq=12, hkv=1, s=64, d=128, lens=(7, 8, 9, 1, 64)), dt)
+       for dt in ("bfloat16", "float32")])
 # (name, generator keyword arguments, k); the seed is the index
 ROUTER_CASES = [
     ("T=4 E=32 k=8", dict(t=4, e=32), 8),

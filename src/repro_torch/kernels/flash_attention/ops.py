@@ -10,7 +10,9 @@ kernel's design and its bound.
 
 Training: `flash_attention` goes through the `torch.autograd.Function`
 `_FlashAttention` when grad mode is on and an input requires grad
-(otherwise it launches the serving instance as before).  Its forward is
+(otherwise it launches the serving instance as before); on the card it
+takes D in `BWD_HEAD_DIMS` and raises `NotImplementedError` at D = 128,
+whose backward is the next slice.  Its forward is
 `flash_attention_lse`, the kernel's training instance, which also writes
 each row's log-sum-exp (plain version `flash_attention_lse_ref`); its
 backward is `flash_attention_bwd`, which launches the hand-written
@@ -28,7 +30,10 @@ import torch
 from repro_torch.kernels import common
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 64)    # the template instances of csrc/flash_attention.cu
+HEAD_DIMS = (16, 64, 128)   # the template instances of csrc/flash_attention.cu
+# the head dims of csrc/flash_attention_bwd.cu; training at D = 128 waits
+# for its slice (ROADMAP Queue B 1)
+BWD_HEAD_DIMS = (16, 64)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -172,7 +177,17 @@ def flash_attention_bwd_ref(q, k, v, o, do, lse, *,
     return dq.to(q.dtype), dk.sum(2).to(k.dtype), dv.sum(2).to(v.dtype)
 
 
+def _no_bwd_on_card(d: int) -> None:
+    """Raise for a head dim the backward kernel does not have yet."""
+    if d not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention_bwd on the card takes D in {BWD_HEAD_DIMS}, "
+            f"got D={d}: training at D=128 is the next slice (ROADMAP "
+            f"Queue B 1)")
+
+
 def _launch_bwd(q, k, v, o, do, lse, scale):
+    _no_bwd_on_card(q.shape[-1])
     code, b, hq, hkv, s, d = _check(q, k, v, "flash_attention_bwd")
     o, do = o.contiguous(), do.contiguous()
     common.require(o, "o", q.dtype, tuple(q.shape))
@@ -212,6 +227,8 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
+        if common.on_cuda(q, k, v):   # no forward whose backward would fail
+            _no_bwd_on_card(q.shape[-1])
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         o, lse = flash_attention_lse(q, k, v, scale=scale)
         ctx.save_for_backward(q, k, v, o, lse)

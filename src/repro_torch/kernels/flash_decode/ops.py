@@ -22,14 +22,26 @@ import torch
 from repro_torch.kernels import common
 
 NEG_INF = -1e30
-MAX_GROUP = 8           # DEC_MAX_GROUP in csrc/flash_decode.cu
+MAX_GROUP = 4           # DEC_MAX_GROUP in csrc/flash_decode.cu: heads a
+                        # cluster computes; a larger group splits
 CLUSTER = 8             # DEC_CLUSTER: CTAs that split one row's cache
 WARPS = 8               # DEC_WARPS
 SMEM_BYTES = 227 * 1024
 
 
+def sub_groups(group: int) -> tuple:
+    """(clusters a (row, kv-head) pair, heads of the largest): a GQA
+    group of more than MAX_GROUP heads splits into the fewest sub-groups
+    of at most MAX_GROUP, as equal as they come (n_sub / sub_group in the
+    source; qwen2.5-32b's 5 -> 3 + 2, mistral-large-123b's 12 -> 3 of
+    4)."""
+    n = common.cdiv(group, MAX_GROUP)
+    return n, common.cdiv(group, n)
+
+
 def smem_bytes(group: int, s: int, d: int) -> int:
-    """Shared memory of one CTA of the kernel, float32: the warps' partial
+    """Shared memory of one CTA of the kernel for a cluster of `group`
+    heads (a sub-group: at most MAX_GROUP), float32: the warps' partial
     P.V ([8, group, D]), the ranks' partials that rank 0 adds ([8, group,
     D]), the share's scores ([group, ceil(S/8)]) and the ranks' (max,
     sum) pairs ([8, group, 2])."""
@@ -62,17 +74,17 @@ def _launch(q, k, v, kv_len, scale):
     b, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     code = common.float_code(q, "q")
-    group = hq // hkv if hkv else 0
+    gs = sub_groups(hq // hkv)[1] if hkv and hq % hkv == 0 else 0
     lanes = d * q.element_size() // 16      # 16-byte loads per cache row
-    if hkv == 0 or hq % hkv or group > MAX_GROUP \
-            or smem_bytes(group, s, d) > SMEM_BYTES \
+    if not gs or smem_bytes(gs, s, d) > SMEM_BYTES \
             or lanes * 16 != d * q.element_size() or not 1 <= lanes <= 32 \
             or lanes & (lanes - 1):
-        raise ValueError(f"flash_decode kernel takes Hq % Hkv == 0, group <= "
-                         f"{MAX_GROUP}, D * element size a power-of-two "
-                         f"multiple of 16 bytes up to 512 and "
-                         f"4*group*(16*D + ceil(S/8) + 16) <= {SMEM_BYTES} "
-                         f"B, got Hq={hq} Hkv={hkv} S={s} D={d} {q.dtype}")
+        raise ValueError(f"flash_decode kernel takes Hq % Hkv == 0, D * "
+                         f"element size a power-of-two multiple of 16 bytes "
+                         f"up to 512 and 4*gs*(16*D + ceil(S/8) + 16) <= "
+                         f"{SMEM_BYTES} B (gs: the sub-group, at most "
+                         f"{MAX_GROUP} heads), got Hq={hq} Hkv={hkv} S={s} "
+                         f"D={d} {q.dtype}")
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("flash_decode kernel: k and v must start on 16 "
                          "bytes")
@@ -92,8 +104,8 @@ def _launch(q, k, v, kv_len, scale):
 def resident_clusters(hq: int, hkv: int, s: int, d: int,
                       dtype: torch.dtype) -> int:
     """Clusters of 8 CTAs of the kernel that the card holds at once for
-    this shape (`cudaOccupancyMaxActiveClusters`); a launch of B * Hkv
-    clusters beyond it runs in waves.  Needs the card."""
+    this shape (`cudaOccupancyMaxActiveClusters`); a launch of B * Hkv *
+    sub-groups clusters beyond it runs in waves.  Needs the card."""
     fn = common.library("flash_decode").flash_decode_resident_clusters
     fn.argtypes = [ctypes.c_int] * 5
     fn.restype = ctypes.c_int

@@ -20,7 +20,10 @@ co-schedule, and each one's replica instance (`*_many`) at R = 2 and
 64.  `serve_calls` gives the serving path's `rmsnorm` and
 `topk_router` at granite-moe-1b-a400m's decode and prefill shapes, and
 `train_calls` the training path's backward kernels `flash_attention_bwd`
-and `rmsnorm_bwd` at chip_smoke.py phase 5's training shapes.
+and `rmsnorm_bwd` at chip_smoke.py phase 5's training shapes, and
+`dense_calls` the dense configs' instances (attention and decode at
+D=128, decode at GQA groups 1, 5 and 12, rmsnorm at d = 5120 and 12288)
+at their serving shapes.
 
 As a script it times those kernels, the simulator's at n=64 and n=256
 (device ms, eager ms, device operations a call), a line each, then all
@@ -142,14 +145,14 @@ def trace(fn, attempts=TRACE_ATTEMPTS, slack_s=TRACE_SLACK_S,
     return recs
 
 
-def device_ops(fn, attempts=TRACE_ATTEMPTS) -> dict:
+def device_ops(fn, attempts=TRACE_ATTEMPTS, slack_s=TRACE_SLACK_S) -> dict:
     """{record name: count} of the device operations one call of `fn`
     makes, from `trace`: every CUDA-side record (kernels, memsets,
     copies) and every cudaMemset* runtime call, so a memset counts as an
     operation however the tracer files it."""
     from torch.autograd import DeviceType
     ops = {}
-    for e in trace(fn, attempts):
+    for e in trace(fn, attempts, slack_s):
         if e.device_type == DeviceType.CUDA \
                 or e.key.startswith("cudaMemset"):
             ops[e.key] = ops.get(e.key, 0) + e.count
@@ -331,6 +334,85 @@ def train_calls(C, FA, RN, device) -> list:
              ops=10 * TRAIN_ROWS * TRAIN_D)]
 
 
+# the dense configs' serving shapes (chip_smoke.py phases 5 and 10),
+# bf16: qwen2.5-32b's prefill of 256 tokens (40/8 heads, D=128), decode
+# at 8 slots over full 512-position caches for groups 5 (qwen2.5-32b,
+# 40/8), 1 (qwen1.5-32b, 40/40) and 12 (mistral-large-123b, 96/8), and
+# rmsnorm over the 8 slots' rows at d = 5120 and 12288
+DENSE_PREFILL = dict(b=1, hq=40, hkv=8, s=256, d=128)
+DENSE_DECODE = {"qwen2.5-32b": (40, 8), "qwen1.5-32b": (40, 40),
+                "mistral-large-123b": (96, 8)}
+DENSE_SLOTS, DENSE_MAX_LEN = 8, 512
+DENSE_RMS_D = (5120, 12288)
+
+
+def dense_calls(C, FA, FD, RN, device) -> list:
+    """The dense configs' instances of the serving kernels at their
+    bfloat16 serving shapes: `flash_attention` at D=128 (DENSE_PREFILL),
+    `flash_decode` at D=128 for each config of DENSE_DECODE (B =
+    DENSE_SLOTS, every row's kv_len DENSE_MAX_LEN) and `rmsnorm` at
+    DENSE_RMS_D: [{name, shape, fn, plain, library, bytes, ops}] (C, FA,
+    FD, RN: the `cases`, `flash_attention.ops`, `flash_decode.ops` and
+    `rmsnorm.ops` modules).  `library` is one PyTorch call of the same
+    function (scaled_dot_product_attention, F.rms_norm), timed beside the
+    kernel and used nowhere in the port; `ops` are flops (bf16 tensor
+    cores for attention)."""
+    import torch
+    import torch.nn.functional as F
+    out = []
+    kw = DENSE_PREFILL
+    b, hq, hkv, s, d = (kw[k] for k in ("b", "hq", "hkv", "s", "d"))
+    q, k, v = (C.to_dtype(x, "bfloat16").to(device)
+               for x in C.attn_inputs(21, **kw))
+    out.append(dict(
+        name="flash_attention",
+        shape=f"q [{b},{hq},{s},{d}] k/v [{b},{hkv},{s},{d}] bf16 causal "
+              f"(qwen2.5-32b prefill)",
+        fn=lambda: FA.flash_attention(q, k, v),
+        plain=lambda: FA.flash_attention_ref(q, k, v),
+        library=lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True),
+        # q, k, v read and o written once; 4 D flops a visible pair
+        bytes=2 * d * b * s * (2 * hq + 2 * hkv),
+        ops=4 * d * b * hq * s * (s + 1) / 2))
+    bs, sl = DENSE_SLOTS, DENSE_MAX_LEN
+    for seed, (cfg, (hq, hkv)) in enumerate(DENSE_DECODE.items()):
+        qd, kc, vc, _ = C.decode_inputs(30 + seed, bs, hq, hkv, sl, 128)
+        qd, kc, vc = (C.to_dtype(x, "bfloat16").to(device)
+                      for x in (qd, kc, vc))
+        lens = torch.full((bs,), sl, dtype=torch.int32, device=device)
+        mask = torch.ones((bs, 1, 1, sl), dtype=torch.bool, device=device)
+        out.append(dict(
+            name="flash_decode",
+            shape=f"q [{bs},{hq},128] cache [{bs},{hkv},{sl},128] bf16 "
+                  f"group {hq // hkv} kv_len {sl} ({cfg} decode)",
+            fn=lambda qd=qd, kc=kc, vc=vc, lens=lens: FD.flash_decode(
+                qd, kc, vc, lens),
+            plain=lambda qd=qd, kc=kc, vc=vc, lens=lens: FD.flash_decode_ref(
+                qd, kc, vc, lens),
+            library=lambda qd=qd, kc=kc, vc=vc, mask=mask:
+                F.scaled_dot_product_attention(qd[:, :, None], kc, vc,
+                                               attn_mask=mask,
+                                               enable_gqa=True),
+            # the valid prefix of K and V read once, q read, out written
+            bytes=2 * 2 * 128 * hkv * bs * sl + 2 * 2 * bs * hq * 128
+            + 4 * bs,
+            ops=4 * hq * 128 * bs * sl, hq=hq, hkv=hkv))
+    for seed, dm in enumerate(DENSE_RMS_D):
+        x, w = C.rms_inputs(40 + seed, (bs, 1, dm))
+        x = C.to_dtype(x, "bfloat16").to(device)
+        w = C.to_dtype(w, "float32").to(device)
+        w_bf = w.to(torch.bfloat16)   # F.rms_norm takes the weight in x's type
+        out.append(dict(
+            name="rmsnorm", shape=f"x [{bs},1,{dm}] bf16 (decode)",
+            fn=lambda x=x, w=w: RN.rmsnorm(x, w),
+            plain=lambda x=x, w=w: RN.rmsnorm_ref(x, w),
+            library=lambda x=x, w_bf=w_bf: F.rms_norm(x, (x.shape[-1],),
+                                                      w_bf, 1e-6),
+            bytes=2 * 2 * bs * dm + 4 * dm, ops=3 * bs * dm))
+    return out
+
+
 SIM_NS = (64, 256)
 # the kernels whose call is one device operation, by the name of their
 # __global__ function in torch.profiler's records (the replica instances
@@ -350,7 +432,8 @@ SERVE_KERNELS = ("rmsnorm", "topk_router")
 
 def load_tree(src: str) -> tuple:
     """(cases, selective_flush.ops, fused_turn.ops, rmsnorm.ops,
-    topk_router.ops, flash_attention.ops) of the port under `src`,
+    topk_router.ops, flash_attention.ops, flash_decode.ops) of the port
+    under `src`,
     imported apart from any
     tree loaded before: the modules of the earlier tree leave
     `sys.modules` first, and keep the modules they imported, so trees
@@ -362,15 +445,17 @@ def load_tree(src: str) -> tuple:
         return tuple(importlib.import_module(f"repro_torch.kernels.{m}")
                      for m in ("cases", "selective_flush.ops",
                                "fused_turn.ops", "rmsnorm.ops",
-                               "topk_router.ops", "flash_attention.ops"))
+                               "topk_router.ops", "flash_attention.ops",
+                               "flash_decode.ops"))
     finally:
         sys.path.pop(0)
 
 
 def time_trees(trees: list, rounds: int, kernels=None) -> list:
     """Device and eager ms per call of the simulator's kernels at n in
-    SIM_NS, of the serving kernels at SERVE_SHAPES (`serve_calls`) and
-    of the training backward kernels (`train_calls`), or of those named
+    SIM_NS, of the serving kernels at SERVE_SHAPES (`serve_calls`), of
+    the training backward kernels (`train_calls`) and of the dense
+    configs' instances (`dense_calls`), or of those named
     in `kernels`, for each checkout in `trees` (`load_tree`; a path may
     repeat), interleaved: each kernel and shape is timed `rounds` times
     over the list of trees before the next, so the host's drift falls on
@@ -381,14 +466,17 @@ def time_trees(trees: list, rounds: int, kernels=None) -> list:
     for tree in trees:
         key = os.path.abspath(tree)
         if key not in calls:
-            C, SF, FT, RN, TR, FA = load_tree(os.path.join(tree, "src"))
+            C, SF, FT, RN, TR, FA, FD = load_tree(os.path.join(tree, "src"))
             dev = torch.device("cuda")
             calls[key] = {(c["name"], c["shape"]): dict(c, n=n)
                           for n in SIM_NS
                           for c in sim_calls(C, SF, FT, n, dev)}
+            # a tree before the D=128 instances has no dense calls
+            dense = dense_calls(C, FA, FD, RN, dev) \
+                if 128 in getattr(FA, "HEAD_DIMS", ()) else []
             calls[key].update({(c["name"], c["shape"]): dict(c, n=None)
                                for c in serve_calls(C, RN, TR, dev)
-                               + train_calls(C, FA, RN, dev)})
+                               + train_calls(C, FA, RN, dev) + dense})
             if kernels:
                 calls[key] = {k: c for k, c in calls[key].items()
                               if c["name"] in kernels}

@@ -1,7 +1,7 @@
 """GQA attention (`repro.models.attention`, its GQA part): init, the
 full-sequence causal form of training and prefill (`gqa_train`, which
 also returns the layer's K/V cache) and one decode step against a cache
-(`gqa_decode`).
+(`gqa_decode`), with the optional QKV bias.
 Multi-head latent and cross attention are not ported yet (ROADMAP Queue
 A 16).
 """
@@ -14,19 +14,30 @@ from repro_torch.models import layers as L
 
 
 def gqa_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+    """The projections, uniform in +-sqrt(1/d_in); with `cfg.qkv_bias`
+    also `bias_q` [H*D], `bias_k` and `bias_v` [Hkv*D], zeros in the
+    model's type, as the JAX function draws them."""
     d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    return {"wq": L.dense_init(gen, d, h * hd, dtype),
-            "wk": L.dense_init(gen, d, hkv * hd, dtype),
-            "wv": L.dense_init(gen, d, hkv * hd, dtype),
-            "wo": L.dense_init(gen, h * hd, d, dtype)}
+    p = {"wq": L.dense_init(gen, d, h * hd, dtype),
+         "wk": L.dense_init(gen, d, hkv * hd, dtype),
+         "wv": L.dense_init(gen, d, hkv * hd, dtype),
+         "wo": L.dense_init(gen, h * hd, d, dtype)}
+    if cfg.qkv_bias:
+        for name, n in (("bias_q", h), ("bias_k", hkv), ("bias_v", hkv)):
+            p[name] = torch.zeros(n * hd, dtype=dtype, device=gen.device)
+    return p
 
 
 def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor,
          positions: torch.Tensor):
-    """x [B, S, d] -> q [B, H, S, D], k, v [B, Hkv, S, D], rotated."""
+    """x [B, S, d] -> q [B, H, S, D], k, v [B, Hkv, S, D], rotated; the
+    QKV bias, where the config has one, is added to the products in the
+    model's type before the reshape and RoPE."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bias_q"], k + p["bias_k"], v + p["bias_v"]
     q = q.reshape(b, s, h, hd).transpose(1, 2)
     k = k.reshape(b, s, hkv, hd).transpose(1, 2)
     v = v.reshape(b, s, hkv, hd).transpose(1, 2)

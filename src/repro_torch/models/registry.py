@@ -14,7 +14,10 @@ from repro_torch.kernels import common
 from repro_torch.models import transformer as T
 
 # the architectures whose configs the port has
-_MODULES = {"granite-moe-1b-a400m": "granite_moe_1b"}
+_MODULES = {"granite-moe-1b-a400m": "granite_moe_1b",
+            "qwen2.5-32b": "qwen2_5_32b",
+            "qwen1.5-32b": "qwen1_5_32b",
+            "mistral-large-123b": "mistral_large_123b"}
 
 
 @dataclasses.dataclass(frozen=True)

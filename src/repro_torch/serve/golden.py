@@ -1,13 +1,18 @@
-"""The golden serving run of granite-moe-1b-a400m, shared by the CPU test
-(`tests/test_torch_serve_golden.py`, which also writes the file from the
-JAX package) and `chip_smoke.py` (which holds the card's run to it).
+"""The golden serving runs of granite-moe-1b-a400m and qwen2.5-32b,
+shared by the CPU tests (`tests/test_torch_serve_golden.py` and
+`tests/test_torch_dense_golden.py`, which also write the files from the
+JAX package) and `chip_smoke.py` (which holds the card's runs to them).
 
-`golden/granite_moe_serve.json` holds, for the JAX package's `Engine` at
-the golden config (full width, depth cut to 2 layers, float32, weights
-`convert.numpy_lm_params(cfg, seed=0)`, 3 slots): each request's prompt,
-its greedy tokens, and for each of its steps the top-5 logits (values
-and indices) of the teacher-forced path, i.e. a B=1 prefill of the
-prompt and then one decode step per greedy token fed back.
+`golden/granite_moe_serve.json` (`PATH`) and `golden/qwen2_5_serve.json`
+(`QWEN_PATH`) hold, for the JAX package's `Engine` at the golden config
+(the model's CONFIG at full width, depth cut to 2 layers, float32,
+weights `convert.numpy_lm_params(cfg, seed=0)`, 3 slots): each request's
+prompt, its greedy tokens, and for each of its steps the top-5 logits
+(values and indices) of the teacher-forced path, i.e. a B=1 prefill of
+the prompt and then one decode step per greedy token fed back.  Both use
+the same prompt lengths and prompt seed, drawn over each model's vocab.
+The functions take the model's full CONFIG as `base`, granite's unless
+named.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from repro_torch.configs import granite_moe_1b
 
 PATH = pathlib.Path(__file__).resolve().parents[1] / "golden" \
     / "granite_moe_serve.json"
+QWEN_PATH = PATH.with_name("qwen2_5_serve.json")
 N_LAYERS = 2
 SEED = 0
 MAX_LEN = 64
@@ -30,13 +36,23 @@ NEW_TOKENS = 8
 PROMPT_LENS = (17, 5, 40, 23, 9)   # 17 and 40: prefill MoE groups that drop
 PROMPT_SEED = 12
 TOPK = 5
-REDUCED = [f"n_layers 24 -> {N_LAYERS}", "dtype bfloat16 -> float32"]
 
 
-def config():
-    """granite-moe-1b-a400m at full width, the golden's cuts applied."""
-    return dataclasses.replace(granite_moe_1b.CONFIG, n_layers=N_LAYERS,
-                               dtype="float32")
+def reduced(base=None) -> list:
+    """The golden's cuts of `base` (granite's CONFIG unless named)."""
+    base = base or granite_moe_1b.CONFIG
+    return [f"n_layers {base.n_layers} -> {N_LAYERS}",
+            f"dtype {base.dtype} -> float32"]
+
+
+REDUCED = reduced()
+
+
+def config(base=None):
+    """`base` (granite-moe-1b-a400m's CONFIG unless named) at full width,
+    the golden's cuts applied."""
+    return dataclasses.replace(base or granite_moe_1b.CONFIG,
+                               n_layers=N_LAYERS, dtype="float32")
 
 
 def prompts(vocab: int) -> list:

@@ -74,8 +74,11 @@ def test_rmsnorm_matches_jax(k):
 # flash_attention (the prefill's causal self-attention, ragged S)
 # --------------------------------------------------------------------------
 
-# S=512 runs on the card only (chip_smoke.py, test_torch_cuda.py): CPU time
-CPU_ATTN = [k for k, c in enumerate(C.ATTN_CASES) if c[1]["s"] <= 256]
+# S=512, and at D=128 S >= 128 and qwen2.5-32b's 40 heads, run on the
+# card only (chip_smoke.py, test_torch_cuda.py): CPU time
+CPU_ATTN = [k for k, c in enumerate(C.ATTN_CASES)
+            if c[1]["s"] <= 256 and c[1]["hq"] <= 16
+            and (c[1]["d"] < 128 or c[1]["s"] < 128)]
 
 
 @pytest.mark.parametrize("k", CPU_ATTN,
@@ -110,8 +113,18 @@ def test_flash_attention_is_causal_per_row():
 # flash_decode (rounding points of layers.decode_attention)
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("k", range(len(C.DECODE_CASES)),
-                         ids=[c[0] for c in C.DECODE_CASES])
+# the dense configs' serving shapes (B=8, S=512, up to 96 heads) and the
+# float32 D=128 cases at B=4 S=512 (their Pallas run is ~2 s each) run on
+# the card only; here D=128 meets the Pallas kernel at group 12 on the
+# split's kv_len edges, and the model's function at every group in bf16
+CPU_DECODE = [k for k, c in enumerate(C.DECODE_CASES)
+              if not c[0].endswith("(decode)")
+              and not (c[0].startswith("D=128 group")
+                       and c[0].endswith("B=4 S=512 float32"))]
+
+
+@pytest.mark.parametrize("k", CPU_DECODE,
+                         ids=[C.DECODE_CASES[k][0] for k in CPU_DECODE])
 def test_flash_decode_matches_jax(k):
     _, kw, dt = C.DECODE_CASES[k]
     q, kk, v, kv_len = C.decode_inputs(k, **kw)

@@ -87,8 +87,8 @@ def test_unported_configs_raise_naming_the_roadmap_item():
         registry.build(mla)
     with pytest.raises(NotImplementedError, match="Queue A 16"):
         registry.get_config("deepseek-v3-671b")
-    with pytest.raises(NotImplementedError, match="QKV bias"):
-        registry.build(dataclasses.replace(SMOKE, qkv_bias=True))
+    with pytest.raises(NotImplementedError, match="layernorm"):
+        registry.build(dataclasses.replace(SMOKE, norm="layernorm"))
     with pytest.raises(NotImplementedError, match="family ssm_xlstm"):
         base.unsupported(dataclasses.replace(SMOKE, family="ssm_xlstm"))
 

@@ -36,8 +36,22 @@ from repro_torch.serve.engine import Engine, Request  # noqa: E402
 TOL = 1e-3
 
 
-def golden_from_jax() -> dict:
-    """Run the golden requests through the JAX package."""
+def _to_jax(tree: dict) -> dict:
+    """numpy leaves -> jax arrays, each numpy leaf dropped once converted,
+    so a full-width tree is held about once, not twice."""
+    import jax.numpy as jnp
+    out = {}
+    for k in list(tree):
+        v = tree.pop(k)
+        out[k] = _to_jax(v) if isinstance(v, dict) else jnp.asarray(v)
+        del v
+    return out
+
+
+def golden_from_jax(base=None, port_base=None) -> dict:
+    """Run the golden requests through the JAX package, for the JAX
+    package's CONFIG `base` (granite-moe-1b-a400m's unless named) and
+    the port's same config `port_base`."""
     import jax
     import jax.numpy as jnp
 
@@ -46,10 +60,10 @@ def golden_from_jax() -> dict:
     from repro.serve.engine import Engine as JEngine
     from repro.serve.engine import Request as JRequest
 
-    cfg = dataclasses.replace(CONFIG, n_layers=G.N_LAYERS, dtype="float32")
+    cfg = dataclasses.replace(base or CONFIG, n_layers=G.N_LAYERS,
+                              dtype="float32")
     model = jbuild(cfg)
-    params = jax.tree.map(jnp.asarray,
-                          convert.numpy_lm_params(G.config(), G.SEED))
+    params = _to_jax(convert.numpy_lm_params(G.config(port_base), G.SEED))
     prompts = G.prompts(cfg.vocab)
     reqs = JEngine(model, params, max_len=G.MAX_LEN, slots=G.SLOTS).generate(
         [JRequest(prompt=p, max_new_tokens=G.NEW_TOKENS) for p in prompts])
@@ -72,8 +86,8 @@ def golden_from_jax() -> dict:
                     "top5_values": [v.tolist() for v, _ in tops],
                     "top5_indices": [i.tolist() for _, i in tops],
                     "margins": [float(v[0] - v[1]) for v, _ in tops]})
-    return {"config": dataclasses.asdict(G.config()),
-            "reduced": G.REDUCED,
+    return {"config": dataclasses.asdict(G.config(port_base)),
+            "reduced": G.reduced(port_base),
             "weights": f"repro_torch.convert.numpy_lm_params(cfg, "
                        f"seed={G.SEED})",
             "engine": {"max_len": G.MAX_LEN, "slots": G.SLOTS,
