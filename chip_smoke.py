@@ -224,12 +224,15 @@ F.rms_norm.
 Phases 3 and 5 cover the dense configs' instances too: phase 3 holds
 attention at D=128 (the bf16 wgmma kernel, two 64-column panels a tile;
 float32 on CUDA cores, 4 lanes a row) and decode at D=128, GQA groups 1,
-5 and 12 (clusters of at most 4 heads a kv-head), both types, to their
-plain versions, and checks that a bf16 D=128 q off 16 bytes and
-attention with grad on at D=128 raise; phase 5 times them at the dense
-serving shapes (`timing.dense_calls`: qwen2.5-32b's prefill of 256
-tokens, decode at 8 slots over 512-position caches for the three
-configs, rmsnorm at d 5120 and 12288) beside their bound and SDPA's or
+5 and 12 (bf16: the tensor-core instance, one cluster a (row, kv-head),
+also at groups 8, 16 and 20 and over a 32,768-position cache; float32:
+clusters of at most 4 heads a kv-head), both types, to their plain
+versions, and checks that a bf16 D=128 q off 16 bytes and attention with
+grad on at D=128 raise; phase 5 times them at the dense serving shapes
+(`timing.dense_calls`: qwen2.5-32b's prefill of 256 tokens, decode at 8
+slots over 512-position caches for the three configs, with the decode
+launch's clusters, resident clusters, registers and spilled bytes,
+rmsnorm at d 5120 and 12288) beside their bound and SDPA's or
 F.rms_norm's time; their kernels-line entries (`flash_attention[D=128]`,
 `flash_decode[D=128 group g]`, `rmsnorm[d=5120,12288]`) take their
 launches from phase 10's bf16 engine runs, the instances they time.
@@ -1630,6 +1633,27 @@ def check_dense_refusals(torch, C, FA) -> None:
         raise AssertionError("training attention at D=128 launched")
 
 
+def decode_instance(torch, FD, b, hq, hkv, s, d) -> dict:
+    """The bf16 decode call's launch: its clusters of 8 CTAs, how many the
+    card holds at once, and, for the tensor-core instance, its registers
+    and local (spilled) bytes a thread as the loaded module reports
+    them."""
+    bf = torch.bfloat16
+    rec = {"instance": "mma" if FD.uses_mma(bf, d) else "cuda cores",
+           "clusters": FD.clusters(b, hq, hkv, d, bf),
+           "resident_clusters": FD.resident_clusters(hq, hkv, s, d, bf)}
+    if FD.uses_mma(bf, d):
+        rec.update(FD.mma_attributes(d))
+    return rec
+
+
+def decode_note(rec: dict) -> str:
+    return (f"{rec['instance']} instance, {rec['clusters']} clusters of 8 "
+            f"CTAs, {rec['resident_clusters']} resident at once"
+            + (f", {rec['registers']} registers, {rec['local_bytes']} "
+               f"local bytes a thread" if "registers" in rec else ""))
+
+
 def measure_dense(torch, C, ops, errs) -> list:
     """Phase 5, the dense configs' instances at their bfloat16 serving
     shapes (`T.dense_calls`): device time per call of the kernel, of its
@@ -1657,17 +1681,12 @@ def measure_dense(torch, C, ops, errs) -> list:
                "library_ms": T.device_ms(call["library"]),
                "shape": call["shape"], "eager_ms": T.eager_ms(call["fn"])}
         if name == "flash_decode":
-            rec.update(clusters=T.DENSE_SLOTS * call["hkv"]
-                       * FD.sub_groups(call["hq"] // call["hkv"])[0],
-                       resident_clusters=FD.resident_clusters(
-                           call["hq"], call["hkv"], T.DENSE_MAX_LEN, 128,
-                           torch.bfloat16))
+            rec.update(decode_instance(torch, FD, T.DENSE_SLOTS, call["hq"],
+                                       call["hkv"], T.DENSE_MAX_LEN, 128))
         log(f"  {key} {call['shape']}: {rec['ms']:.5f} ms/call (plain "
             f"{rec['plain_ms']:.5f}, library {rec['library_ms']:.5f}), "
             f"eager {rec['eager_ms']:.5f} ms, bound {b_ms:.7f} ms ({b_by})"
-            + (f"; {rec['clusters']} clusters of 8 CTAs, "
-               f"{rec['resident_clusters']} resident at once"
-               if name == "flash_decode" else ""))
+            + (f"; {decode_note(rec)}" if name == "flash_decode" else ""))
         if key in out:           # rmsnorm's second width
             out[key]["by_shape"].append(rec)
         else:
@@ -1774,26 +1793,20 @@ def measure_serving(torch, C, ops, errs, prompt_lens) -> tuple:
             "bound_ms", "bound_by")} | {"s": s})
     out.append(rec | {"by_length": by_length})
 
-    # decode: the first four prompts half-way through their new tokens
-    b, S = SERVE_SLOTS, SERVE_MAX_LEN
-    lens = torch.tensor([n + SERVE_NEW // 2 for n in prompt_lens[:b]],
-                        dtype=torch.int32, device=dev)
-    qd, kc, vc = randn(b, 16, 64), randn(b, 8, S, 64), randn(b, 8, S, 64)
-    mask = (torch.arange(S, device=dev) < lens[:, None])[:, None, None, :]
-    valid = int(lens.sum())
-    entry("flash_decode", SERVE_REPLACES["flash_decode"],
-          f"q [{b},16,64] cache [{b},8,{S},64] bf16 kv_len "
-          f"{lens.tolist()} (decode)",
-          lambda: FD.flash_decode(qd, kc, vc, lens),
-          lambda: FD.flash_decode_ref(qd, kc, vc, lens),
-          lambda: F.scaled_dot_product_attention(
-              qd[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True),
-          2 * es * 64 * 8 * valid + 2 * es * b * 16 * 64 + 4 * b,
-          4 * 16 * 64 * valid, BF16_FLOPS,
-          note=lambda rec: {"clusters": b * 8, "resident_clusters":
-                            FD.resident_clusters(16, 8, S, 64, bf)})
-    log(f"    flash_decode launches {out[-1]['clusters']} clusters of 8 "
-        f"CTAs; {out[-1]['resident_clusters']} fit on the card at once")
+    # decode: the first four prompts half-way through their new tokens,
+    # the shape that `T.decode_calls` (and so the A/B of timing.py) times
+    lens = tuple(n + SERVE_NEW // 2 for n in prompt_lens[:SERVE_SLOTS])
+    if lens != T.GRANITE_DECODE_LENS:
+        raise AssertionError(f"phase 7's decode kv_len {lens} is not "
+                             f"timing.GRANITE_DECODE_LENS "
+                             f"{T.GRANITE_DECODE_LENS}")
+    (call,) = T.decode_calls(C, FD, dev)
+    entry("flash_decode", SERVE_REPLACES["flash_decode"], call["shape"],
+          call["fn"], call["plain"], call["library"], call["bytes"],
+          call["ops"], BF16_FLOPS,
+          note=lambda rec: decode_instance(torch, FD, SERVE_SLOTS, 16, 8,
+                                           SERVE_MAX_LEN, 64))
+    log(f"    flash_decode: {decode_note(out[-1])}")
 
     by_shape("topk_router", SERVE_REPLACES["topk_router"],
              lambda g, k: None,
@@ -2169,7 +2182,7 @@ def dense_child(torch) -> int:
 
 # the __global__ functions of csrc/ that the serving path launches
 PORT_KERNELS = ("rmsnorm_rows_kernel", "wgmma_kernel", "flash_kernel",
-                "decode_kernel", "topk_router_kernel")
+                "decode_kernel", "mma_decode_kernel", "topk_router_kernel")
 
 
 def _port_kernels(kernels) -> dict:

@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the wgmma attention kernels
-// (`flash_attention.cu`, `flash_attention_bwd.cu`): mbarriers, TMA loads
+// (`flash_attention.cu`, `flash_attention_bwd.cu`; `flash_decode.cu` takes
+// `smem_u32` and `pack_bf16`): mbarriers, TMA loads
 // (tiles through a tensor map, flat runs of bytes), the 128-byte-swizzle
 // shared-memory descriptor, the two m64n64k16 bf16 `wgmma` forms and the
 // m64n128k16 register-A form, and the [heads, S, D] bf16 tensor map built

@@ -463,10 +463,10 @@ DECODE_CASES = (
        for dt in ("bfloat16", "float32")]
     + [("B=3 S=24 SMOKE kv_len 7,8,9 float32",
         dict(b=3, hq=4, hkv=2, s=24, d=16, lens=(7, 8, 9)), "float32")]
-    # D=128 at the dense configs' groups 1, 5 and 12 (clusters of at most
-    # 4 heads a kv-head: 5 as 3 + 2, 12 as 4 + 4 + 4), then their serving
-    # shapes (B=8, S=512: 40/40, 40/8, 96/8) and group 12 at the split's
-    # edges
+    # D=128 at the dense configs' groups 1, 5 and 12 (float32: clusters of
+    # at most 4 heads a kv-head, 5 as 3 + 2, 12 as 4 + 4 + 4; bf16: one
+    # cluster a kv-head), then their serving shapes (B=8, S=512: 40/40,
+    # 40/8, 96/8) and group 12 at the split's edges
     + [(f"D=128 group {g} B=4 S=512 {dt}", dict(b=4, hq=hq, hkv=hkv, s=512,
                                                 d=128), dt)
        for g, hq, hkv in ((1, 4, 4), (5, 10, 2), (12, 24, 2))
@@ -476,7 +476,30 @@ DECODE_CASES = (
        for hq, hkv in ((40, 40), (40, 8), (96, 8))]
     + [(f"D=128 group 12 B=5 S=64 kv_len 7,8,9,1,64 {dt}",
         dict(b=5, hq=12, hkv=1, s=64, d=128, lens=(7, 8, 9, 1, 64)), dt)
-       for dt in ("bfloat16", "float32")])
+       for dt in ("bfloat16", "float32")]
+    # bf16 D=128 on the card only (names end in "(card)"): the tensor-core
+    # instance, one cluster a (row, kv-head) at any group: groups 8 and 16
+    # in one M-tile of 16 heads, group 5 at the split's kv_len edges, a
+    # 32,768-position cache at group 12 (shares of 4096 and 2501 rows, past
+    # a 64-row chunk: the second pass reloads), and group 20 in two
+    # M-tiles, with shares of 1-3 chunks
+    + [("D=128 group 8 B=4 S=512 bfloat16 (card)",
+        dict(b=4, hq=16, hkv=2, s=512, d=128), "bfloat16"),
+       ("D=128 group 16 B=4 S=512 bfloat16 (card)",
+        dict(b=4, hq=16, hkv=1, s=512, d=128), "bfloat16"),
+       ("D=128 group 5 B=5 S=64 kv_len 7,8,9,1,64 bfloat16 (card)",
+        dict(b=5, hq=10, hkv=2, s=64, d=128, lens=(7, 8, 9, 1, 64)),
+        "bfloat16"),
+       ("D=128 group 12 B=2 S=32768 kv_len 32768,20001 bfloat16 (card)",
+        dict(b=2, hq=12, hkv=1, s=32768, d=128, lens=(32768, 20001)),
+        "bfloat16"),
+       ("D=128 group 20 B=3 S=1100 kv_len 1100,517,9 bfloat16 (card)",
+        dict(b=3, hq=40, hkv=2, s=1100, d=128, lens=(1100, 517, 9)),
+        "bfloat16")]
+    # bf16 at a head dim the tensor-core instance does not take (SMOKE's
+    # 16): the CUDA-core kernel's bf16 instance
+    + [("B=5 S=48 SMOKE bfloat16 (card)", dict(b=5, hq=4, hkv=2, s=48, d=16),
+        "bfloat16")])
 # (name, generator keyword arguments, k); the seed is the index
 ROUTER_CASES = [
     ("T=4 E=32 k=8", dict(t=4, e=32), 8),

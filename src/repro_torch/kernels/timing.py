@@ -20,7 +20,9 @@ co-schedule, and each one's replica instance (`*_many`) at R = 2 and
 64.  `serve_calls` gives the serving path's `rmsnorm` and
 `topk_router` at granite-moe-1b-a400m's decode and prefill shapes, and
 `train_calls` the training path's backward kernels `flash_attention_bwd`
-and `rmsnorm_bwd` at chip_smoke.py phase 5's training shapes, and
+and `rmsnorm_bwd` at chip_smoke.py phase 5's training shapes,
+`decode_calls` `flash_decode` at granite's heads (its serving decode
+shape, or any kv_len and cache length), and
 `dense_calls` the dense configs' instances (attention and decode at
 D=128, decode at GQA groups 1, 5 and 12, rmsnorm at d = 5120 and 12288)
 at their serving shapes.
@@ -413,6 +415,47 @@ def dense_calls(C, FA, FD, RN, device) -> list:
     return out
 
 
+# granite-moe-1b-a400m's decode on the engine of chip_smoke.py phase 7
+# (4 slots over 512-position caches, 16/8 heads, D=64, bf16), each slot's
+# kv_len its prompt's length (phase 7's first four: 256, 16, 38, 67) plus
+# half its 32 new tokens: the shape of chip_smoke.py phase 5's decode,
+# which takes its entry from `decode_calls` and raises if phase 7's
+# prompts give other lengths
+GRANITE_DECODE_LENS = (272, 32, 54, 83)
+# granite's heads over full 4,096-position caches: each rank's share is
+# 512 rows, eight 64-row chunks of the tensor-core instance (its second
+# pass reloads K and V), where the serving shape's shares fit one chunk
+GRANITE_LONG_LENS, GRANITE_LONG_S = (4096,) * 4, 4096
+
+
+def decode_calls(C, FD, device, lens=GRANITE_DECODE_LENS, s=512,
+                 what="granite decode") -> list:
+    """`flash_decode` at granite-moe-1b-a400m's heads (16/8, D=64, bf16),
+    one slot a kv_len of `lens` over `s`-position caches (by default the
+    serving decode shape, GRANITE_DECODE_LENS): [{name, shape, fn, plain,
+    library, bytes, ops}] (C, FD: the `cases` and `flash_decode.ops`
+    modules)."""
+    import torch
+    import torch.nn.functional as F
+    b, hq, hkv, d = len(lens), 16, 8, 64
+    qd, kc, vc, _ = C.decode_inputs(35, b, hq, hkv, s, d)
+    qd, kc, vc = (C.to_dtype(x, "bfloat16").to(device) for x in (qd, kc, vc))
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=device)
+    mask = (torch.arange(s, device=device) < kv_len[:, None])[:, None, None, :]
+    valid = sum(lens)
+    return [dict(
+        name="flash_decode",
+        shape=f"q [{b},{hq},{d}] cache [{b},{hkv},{s},{d}] bf16 kv_len "
+              f"{list(lens)} ({what})",
+        fn=lambda: FD.flash_decode(qd, kc, vc, kv_len),
+        plain=lambda: FD.flash_decode_ref(qd, kc, vc, kv_len),
+        library=lambda: F.scaled_dot_product_attention(
+            qd[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True),
+        # the valid prefix of K and V read once, q read, out written
+        bytes=2 * 2 * d * hkv * valid + 2 * 2 * b * hq * d + 4 * b,
+        ops=4 * hq * d * valid)]
+
+
 SIM_NS = (64, 256)
 # the kernels whose call is one device operation, by the name of their
 # __global__ function in torch.profiler's records (the replica instances
@@ -454,8 +497,10 @@ def load_tree(src: str) -> tuple:
 def time_trees(trees: list, rounds: int, kernels=None) -> list:
     """Device and eager ms per call of the simulator's kernels at n in
     SIM_NS, of the serving kernels at SERVE_SHAPES (`serve_calls`), of
-    the training backward kernels (`train_calls`) and of the dense
-    configs' instances (`dense_calls`), or of those named
+    the training backward kernels (`train_calls`), of granite's decode
+    at its serving shape and over GRANITE_LONG_S-position caches
+    (`decode_calls`) and of the dense configs' instances (`dense_calls`),
+    or of those named
     in `kernels`, for each checkout in `trees` (`load_tree`; a path may
     repeat), interleaved: each kernel and shape is timed `rounds` times
     over the list of trees before the next, so the host's drift falls on
@@ -476,7 +521,12 @@ def time_trees(trees: list, rounds: int, kernels=None) -> list:
                 if 128 in getattr(FA, "HEAD_DIMS", ()) else []
             calls[key].update({(c["name"], c["shape"]): dict(c, n=None)
                                for c in serve_calls(C, RN, TR, dev)
-                               + train_calls(C, FA, RN, dev) + dense})
+                               + train_calls(C, FA, RN, dev)
+                               + decode_calls(C, FD, dev)
+                               + decode_calls(C, FD, dev, GRANITE_LONG_LENS,
+                                              GRANITE_LONG_S,
+                                              "granite heads, long cache")
+                               + dense})
             if kernels:
                 calls[key] = {k: c for k, c in calls[key].items()
                               if c["name"] in kernels}

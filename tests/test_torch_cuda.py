@@ -9,6 +9,7 @@ so they also run on a machine that has only PyTorch:
 the lists of `repro_torch.kernels.cases`, which `chip_smoke.py` runs too.
 """
 import contextlib
+import ctypes
 import json
 import pathlib
 import time
@@ -22,6 +23,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import protocol as P  # noqa: E402
 from repro_torch.distributed import delta_sync as DS  # noqa: E402
 from repro_torch.kernels import cases as C  # noqa: E402
+from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as FA  # noqa: E402
 from repro_torch.kernels.flash_decode import ops as FD  # noqa: E402
 from repro_torch.kernels.fused_turn import ops as FT  # noqa: E402
@@ -492,14 +494,63 @@ def test_flash_decode_long_cache_on_card(cuda, n):
 
 
 def test_flash_decode_shared_memory_fits_long_caches():
-    """One CTA holds only its eighth of the scores: granite's group of 2
-    and the most heads a cluster takes, MAX_GROUP (4; a larger group
-    splits), fit a 32,768-position cache; a cache whose share of scores
-    does not fit (131,072 positions at 4 heads) is refused before
-    launch."""
+    """The bf16 tensor-core instance's shared memory does not grow with S
+    and, up to a group of 12, lets 5 CTAs share an SM (228 KB, 1 KB of it
+    reserved a CTA); any larger group takes one M-tile's worth.  The
+    CUDA-core instance (float32) holds only its eighth of the scores:
+    granite's group of 2 and the most heads its cluster takes, MAX_GROUP
+    (4; a larger group splits), fit a 32,768-position cache; a cache
+    whose share of scores does not fit (131,072 positions at 4 heads) is
+    refused before launch, as is a group that does not divide."""
+    assert FD.uses_mma(torch.bfloat16, 128)
+    assert not FD.uses_mma(torch.float32, 128)
+    for d in FD.MMA_HEAD_DIMS:
+        sizes = [FD.mma_smem_bytes(g, d) for g in (1, 5, 12, 16, 96)]
+        assert sizes == sorted(sizes) and sizes[-2] == sizes[-1] < 48 * 1024
+        assert 5 * (FD.mma_smem_bytes(12, d) + 1024) <= 228 * 1024
     for group in (2, FD.MAX_GROUP):
         assert FD.smem_bytes(group, 32768, 64) <= FD.SMEM_BYTES
     assert FD.smem_bytes(FD.MAX_GROUP, 131072, 64) > FD.SMEM_BYTES
+    before = FD.flash_decode.launches
+    q = torch.zeros(1, 4, 64)
+    k = torch.empty(1, 1, 131072, 64)
+    with pytest.raises(ValueError, match="CUDA-core instance"):
+        FD._launch(q, k, k, torch.ones(1, dtype=torch.int32), 0.125)
+    q = torch.zeros(1, 5, 128, dtype=torch.bfloat16)
+    k = torch.zeros(1, 2, 8, 128, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="Hq % Hkv == 0"):
+        FD._launch(q, k, k, torch.ones(1, dtype=torch.int32), 0.125)
+    assert FD.flash_decode.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_decode_q_off_16_bytes_gives_the_same_bits(cuda, d):
+    """The tensor-core instance reads q by 16-byte loads where q starts on
+    16 bytes and element by element where it does not (a contiguous view
+    one element into its buffer): both give the same bits."""
+    q, k, v, lens = C.decode_inputs(60 + d, 3, 24, 2, 200, d)
+    q, k, v = (C.to_dtype(x, "bfloat16").to(cuda) for x in (q, k, v))
+    kv_len = torch.from_numpy(lens).to(cuda)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
+    off = buf[1:].view(q.shape)
+    off.copy_(q)
+    assert off.data_ptr() % 16 and FD.uses_mma(q.dtype, d)
+    np.testing.assert_array_equal(_bits(FD.flash_decode(off, k, v, kv_len)),
+                                  _bits(FD.flash_decode(q, k, v, kv_len)))
+
+
+@pytest.mark.cuda
+def test_flash_decode_mma_shared_memory_is_the_sources(cuda):
+    """`FD.mma_smem_bytes`, the rule the wrapper and the CPU test above
+    state, is the shared memory the source's layout launches with, at
+    every head dim and at groups in one M-tile and past it."""
+    fn = common.library("flash_decode").flash_decode_mma_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    for d in FD.MMA_HEAD_DIMS:
+        for hq, hkv in ((8, 8), (40, 8), (96, 8), (16, 1), (40, 2)):
+            assert fn(hq, hkv, d) == FD.mma_smem_bytes(hq // hkv, d)
 
 
 @pytest.mark.cuda
@@ -525,9 +576,7 @@ def test_serving_kernels_refuse_what_they_do_not_take(cuda):
                    torch.ones(8, device=cuda))
     lens = torch.ones(1, dtype=torch.int32, device=cuda)
     cache = torch.zeros((1, 2, 8, 64), device=cuda)
-    # any GQA group splits into clusters of at most 4 heads (5 -> 3 + 2,
-    # 12 -> 4 + 4 + 4); a q-head count that is no multiple of the
-    # kv-heads' is refused
+    # a q-head count that is no multiple of the kv-heads' is refused
     with pytest.raises(ValueError, match="Hq % Hkv == 0"):
         FD.flash_decode(torch.zeros((1, 3, 64), device=cuda), cache, cache,
                         lens)
@@ -535,11 +584,22 @@ def test_serving_kernels_refuse_what_they_do_not_take(cuda):
         FD.flash_decode(torch.zeros((1, 4, 24), device=cuda),
                         cache[..., :24].contiguous(),
                         cache[..., :24].contiguous(), lens)
-    cache = torch.zeros((1, 1, 131072, 64), dtype=torch.bfloat16,
-                        device=cuda)
+    # the CUDA-core instance (float32) holds its sub-group's scores in
+    # shared memory: group 8 (two clusters of 4 heads) over 131,072
+    # positions does not fit; the bf16 tensor-core instance keeps no
+    # scores there and takes that cache
+    cache = torch.zeros((1, 1, 131072, 64), device=cuda)
     with pytest.raises(ValueError, match="ceil"):
-        FD.flash_decode(torch.zeros((1, 8, 64), dtype=torch.bfloat16,
-                                    device=cuda), cache, cache, lens)
+        FD.flash_decode(torch.zeros((1, 8, 64), device=cuda), cache, cache,
+                        lens)
+    q, k, v, kv_len = C.decode_inputs(70, 1, 8, 1, 131072, 64,
+                                      lens=[131072])
+    q, k, v = (C.to_dtype(x, "bfloat16").to(cuda) for x in (q, k, v))
+    kv_len = torch.from_numpy(kv_len).to(cuda)
+    assert FD.uses_mma(q.dtype, 64)
+    assert C.within(FD.flash_decode(q, k, v, kv_len),
+                    FD.flash_decode_ref(q, k, v, kv_len),
+                    "bfloat16") <= C.TOL["bfloat16"]
 
 
 @pytest.mark.cuda
@@ -677,7 +737,6 @@ def test_dispatch_is_by_device():
     before = FT.trip_plan.launches
     FT.trip_plan(*args, None, remote_cap=True)
     assert FT.trip_plan.launches == before
-    from repro_torch.kernels import common
     assert common.on_cuda(*args) is False
     meta = torch.zeros(1, device="meta")
     with pytest.raises(ValueError, match="span devices"):
@@ -970,14 +1029,20 @@ def _dense_instance_is_one_device_operation(cuda, name, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("group", [1, 5, 12])
+@pytest.mark.parametrize("group,s", [(1, 512), (5, 512), (12, 512),
+                                     (16, 512), (12, 32768)],
+                         ids=["group 1", "group 5", "group 12", "group 16",
+                              "group 12 S=32768"])
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 def test_flash_decode_d128_rows_are_independent_and_repeatable(cuda, dt,
-                                                               group):
+                                                               group, s):
     """At D=128 each row of a B=4 batch is bitwise the row run alone, and
-    two calls give the same bits, at groups 1, 5 and 12 (clusters of at
-    most 4 heads a kv-head: 3 + 2 and 4 + 4 + 4)."""
-    q, k, v, lens = C.decode_inputs(50 + group, 4, 2 * group, 2, 512, 128)
+    two calls give the same bits, at groups 1, 5, 12 and 16 and over a
+    32,768-position cache (rows at kv_len 1, 32768, 9 and a random
+    length: shares past a 64-row chunk, whose second pass reloads); bf16
+    is one cluster a (row, kv-head), float32 clusters of at most 4 heads
+    (3 + 2, 4 + 4 + 4, 4 x 4)."""
+    q, k, v, lens = C.decode_inputs(50 + group, 4, 2 * group, 2, s, 128)
     lens[2] = 9
     args = [C.to_dtype(x, dt).to(cuda) for x in (q, k, v)]
     kv_len = torch.from_numpy(lens).to(cuda)

@@ -95,6 +95,40 @@ def test_serve_calls_give_both_serving_kernels_at_both_shapes():
     assert set(timing.SERVE_KERNELS) <= set(timing.ONE_OP)
 
 
+def test_decode_calls_give_granites_serving_decode_shape():
+    """flash_decode at granite's decode shape, each slot's kv_len its
+    phase-7 prompt's length plus 16; on the CPU the call takes the plain
+    version (no launch); the bytes are the valid prefix's K and V, q and
+    the output."""
+    from repro_torch.kernels.flash_decode import ops as FD
+    (call,) = timing.decode_calls(C, FD, torch.device("cpu"))
+    assert call["shape"] == ("q [4,16,64] cache [4,8,512,64] bf16 kv_len "
+                             "[272, 32, 54, 83] (granite decode)")
+    before = FD.flash_decode.launches
+    assert torch.equal(call["fn"](), call["plain"]())
+    assert FD.flash_decode.launches == before
+    assert call["bytes"] == 2 * 2 * 64 * 8 * 441 + 2 * 2 * 4 * 16 * 64 + 16
+    assert call["ops"] == 4 * 16 * 64 * 441
+
+
+def test_decode_calls_take_the_long_cache_shape():
+    """The A/B's long-cache decode at granite's heads: four full
+    4,096-position caches, each rank's share eight 64-row chunks; on the
+    CPU the plain version, with the bytes of the four valid prefixes."""
+    from repro_torch.kernels.flash_decode import ops as FD
+    (call,) = timing.decode_calls(C, FD, torch.device("cpu"),
+                                  timing.GRANITE_LONG_LENS,
+                                  timing.GRANITE_LONG_S, "long")
+    assert call["shape"] == ("q [4,16,64] cache [4,8,4096,64] bf16 kv_len "
+                             "[4096, 4096, 4096, 4096] (long)")
+    assert 4096 // FD.CLUSTER == 8 * FD.MMA_ROWS
+    before = FD.flash_decode.launches
+    assert torch.equal(call["fn"](), call["plain"]())
+    assert FD.flash_decode.launches == before
+    assert call["bytes"] == 2 * 2 * 64 * 8 * 4 * 4096 + 2 * 2 * 4 * 16 * 64 \
+        + 16
+
+
 def test_train_calls_give_both_backward_kernels_at_the_training_shape():
     """flash_attention_bwd and rmsnorm_bwd at chip_smoke.py phase 5's
     training microbatch; on the CPU each call takes the plain version (no
