@@ -148,8 +148,8 @@ Phases, each fatal on failure:
      weights) teacher-forced on `golden/granite_moe_serve.json`'s tokens,
      top-5 logits within GOLDEN_TOL of the JAX reference's and greedy
      tokens equal wherever the margin exceeds 2 * GOLDEN_TOL; (2) the
-     model at full width, depth 24 cut to SERVE_LAYERS (12, for phase
-     10's time), weights from a seeded torch.Generator on the
+     model at full width, depth 24 cut to SERVE_LAYERS (8, for phases
+     10 and 11's time), weights from a seeded torch.Generator on the
      card, Engine(max_len=512, slots=4) answering 8 requests (prompts of
      16-256 tokens, 32 new tokens each): in float32 token for token the
      serial one-request-at-a-time run, in bfloat16 (the timed run, with
@@ -178,13 +178,14 @@ Phases, each fatal on failure:
      float32, through torch.autograd, every gradient (parameters and
      input) within GRAD_CHECK_TOL of relative norm of the same block
      with every kernel swapped for its plain version, and one lm_loss
-     step of the full 24-layer bf16 model with a finite, nonzero
-     gradient in every parameter leaf; (2) the golden run (full width, 2
+     step of the bf16 model at full width and TRAIN_LAYERS layers (24 cut
+     to 12 for phase 11's time) with a finite, nonzero gradient in every
+     parameter leaf; (2) the golden run (full width, 2
      layers, float32, numpy weights, 3 AdamW steps of 2 x 64 tokens in
      microbatches of 1) on the golden's batches, loss, aux, gnorm and
-     every leaf's norm within `train.golden.TOL` of
+     every leaf's norm within `train.golden.GRANITE.tol` of
      `golden/granite_moe_train.json` (the JAX package's run); (3) the
-     full run through `Trainer`: 24 layers, bf16, batch 8 x 256 in
+     full run through `Trainer`: TRAIN_LAYERS layers, bf16, batch 8 x 256 in
      microbatches of 4, AdamW, remat full, 1 warm-up and 4 timed steps
      with the training kernels' launch counts set to 0 just before and
      read just after (the kernels line's `launches` of the training
@@ -200,7 +201,7 @@ Phases, each fatal on failure:
      time: (1) qwen2.5-32b's golden run (full width, depth 64 -> 2,
      float32, numpy weights with nonzero QKV biases, ~10.1 GB) held to
      `golden/qwen2_5_serve.json` as phase 7 (1) holds granite's; (2)
-     qwen2.5-32b at full width, depth 64 -> DENSE_TIMED_LAYERS (16),
+     qwen2.5-32b at full width, depth 64 -> DENSE_TIMED_LAYERS (8),
      bf16, `lm_init` on the card: phase 7's 8 requests through the
      engine, equal to the serial run wherever its margin exceeds
      BF16_MARGIN, with the dense kernels' launch counts set to 0 just
@@ -209,17 +210,45 @@ Phases, each fatal on failure:
      qwen1.5-32b and mistral-large-123b at full width, depth ->
      DENSE_CHECK_LAYERS (2): 4 requests in float32, engine == serial run
      token for token, then in bf16, equal wherever the serial margin
-     exceeds BF16_MARGIN; every dense kernel launched in every run.
+     exceeds BF16_MARGIN; every dense kernel launched in every run;
+ 11. training the dense configs, in a child process with PyTorch's
+     deterministic algorithms on: (1) one full-width block of each
+     (qwen2.5-32b: d 5120, 40/8 heads, QKV bias drawn nonzero;
+     qwen1.5-32b: 40/40, bias; mistral-large-123b: d 12288, 96/8) on a
+     [4, 256, d] input, in float32 and in bf16, every gradient within
+     DENSE_GRAD_TOL of relative norm of the same block through the plain
+     versions (as phase 9 (1)); (2) mistral-large-123b's golden run (full
+     width, depth 88 -> 1, float32, numpy weights, 3 Adafactor steps of
+     2 x 64 tokens: the float32 D=128 backward and GQA group 12) held to
+     `golden/mistral_large_train.json` (the JAX package's run) within
+     `train.golden.MISTRAL_LARGE.tol`, a second run bitwise the first,
+     and phase 9 (4)'s restart at that size; (3) `Trainer` on qwen2.5-32b
+     at full width, depth 64 -> DENSE_TRAIN_LAYERS (4), bf16, AdamW,
+     phase 9's batch shape: 1 warm-up and 4 timed steps with the training
+     kernels' launch counts set to 0 just before and read just after
+     (`flash_attention_bwd` once a layer a microbatch a step), step ms,
+     tokens/s, peak memory, launches a step, one step under
+     torch.profiler (idle share, device time by name), every leaf's
+     gradient finite and nonzero; (4) qwen1.5-32b (AdamW) and
+     mistral-large-123b (Adafactor) at depth DENSE_TRAIN_CHECK_LAYERS
+     (2), bf16, DENSE_TRAIN_CHECK_STEPS (2) steps each: finite losses,
+     the backward kernels launched, every leaf's gradient finite and
+     nonzero.
 
 Phases 3 and 5 cover the training kernels too (`flash_attention`'s
 training instance `flash_attention_lse`, and `flash_attention_bwd`,
 `rmsnorm_bwd`, `topk_router_bwd`): phase 3 holds them to their plain
 versions on `cases.TRAIN_ATTN_CASES`, `RMS_BWD_CASES` and
-`ROUTER_BWD_CASES` (S 1-300, GQA groups 1, 2, 8, D 16 and 64, bf16 and
-float32; one rmsnorm row, odd widths; router k = 1, k = E, ties); phase
-5 times them at the full run's microbatch shapes beside their bound, the
-plain versions and the backward of scaled_dot_product_attention and of
-F.rms_norm.
+`ROUTER_BWD_CASES` (S 1-300, GQA groups 1-16, D 16, 64 and 128, the
+dense configs' training shapes, bf16 and float32; one rmsnorm row, odd
+widths, d 5120 and 12288; router k = 1, k = E, ties); phase 5 times them
+at the full run's microbatch shapes beside their bound, the plain versions and the backward of
+scaled_dot_product_attention and of F.rms_norm, and the dense configs'
+training instances at their microbatch (`timing.dense_train_calls`:
+`flash_attention_lse[D=128]`, `flash_attention_bwd[D=128 bf16]` a shape
+a config with the kernel's registers and spilled bytes,
+`flash_attention_bwd[D=128 float32]`, `rmsnorm_bwd[d=5120,12288]`),
+which take their launches from phase 11.
 
 Phases 3 and 5 cover the dense configs' instances too: phase 3 holds
 attention at D=128 (the bf16 wgmma kernel, two 64-column panels a tile;
@@ -227,8 +256,10 @@ float32 on CUDA cores, 4 lanes a row) and decode at D=128, GQA groups 1,
 5 and 12 (bf16: the tensor-core instance, one cluster a (row, kv-head),
 also at groups 8, 16 and 20 and over a 32,768-position cache; float32:
 clusters of at most 4 heads a kv-head), both types, to their plain
-versions, and checks that a bf16 D=128 q off 16 bytes and attention with
-grad on at D=128 raise; phase 5 times them at the dense serving shapes
+versions, and checks that a bf16 D=128 q off 16 bytes raises, that
+attention with grad on at D=128 runs the backward kernel and meets the
+plain version's gradients, and that at D=160 it raises before any
+launch; phase 5 times them at the dense serving shapes
 (`timing.dense_calls`: qwen2.5-32b's prefill of 256 tokens, decode at 8
 slots over 512-position caches for the three configs, with the decode
 launch's clusters, resident clusters, registers and spilled bytes,
@@ -279,13 +310,15 @@ GOLDEN_TOL = 1e-3               # float32 logits, card vs the JAX CPU run
 BF16_MARGIN = 0.125             # 8 bf16 ulps of logits of size 2-4
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW = 4, 512, 32
 # phase 7's engine and serial runs of granite-moe-1b-a400m: depth 24 ->
-# 12 (cut to make room for phase 10; the golden run holds the full width)
-SERVE_LAYERS = 12
+# 12 (cut to make room for phase 10) -> 8 (for phase 11; the golden run
+# holds the full width)
+SERVE_LAYERS = 8
 # phase 10, the dense configs: qwen2.5-32b's timed run (bf16, depth 64 ->
-# 16, ~18.7 GB), and qwen1.5-32b's and mistral-large-123b's engine checks
+# 16, ~18.7 GB, -> 8 for phase 11's time), and qwen1.5-32b's and
+# mistral-large-123b's engine checks
 # (float32, then bf16, depth 64 and 88 -> 2, up to ~14.3 GB) on the first
 # requests
-DENSE_TIMED_LAYERS = 16
+DENSE_TIMED_LAYERS = 8
 DENSE_CHECK_LAYERS = 2
 DENSE_CHECK_REQUESTS = 4
 T = None                        # repro_torch.kernels.timing, set by main
@@ -353,12 +386,34 @@ SWEEP_FULL_ARGV = ["--workloads", "producer_consumer_mc", "worksteal",
                    "--no-pack-ab", "--remote-batch-sizes", "64",
                    "--no-fuse-ab"]
 SWEEP_COMMITTED = os.path.join(ROOT, "BENCH_workloads.json")
-# phase 9, training granite-moe-1b-a400m: the full run's shape (24
-# layers, bf16, remat full, AdamW) and the block of the gradient check
+# phase 9, training granite-moe-1b-a400m: the full run's shape (bf16,
+# remat full, AdamW; depth 24 -> TRAIN_LAYERS, cut for phase 11's time)
+# and the block of the gradient check
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 8, 256, 4
+TRAIN_LAYERS = 12
 TRAIN_STEPS = 5                 # 1 warm-up step, then 4 timed
 GRAD_CHECK_SHAPE = (2, 128)     # (B, S) of the one-block gradient check
 GRAD_CHECK_TOL = 1e-4           # float32, relative norm of a leaf's error
+# phase 11, training the dense configs: the gradient check's input (a
+# microbatch of 4 x 256 tokens at each config's full width).  In bf16 the
+# kernels and the plain versions round to bf16 at other points: a kernel's
+# output may sit one bf16 ulp (2^-8 relative) off the plain version's,
+# and a gradient leaf passes two such rounding points (the operation's
+# output, then the leaf's own bf16 sum), so the two runs may differ by
+# 2 x 2^-7 of relative norm (measured 4.3e-3 to 7.6e-3); float32 is held
+# to GRAD_CHECK_TOL
+DENSE_GRAD_SHAPE = (4, 256)
+DENSE_GRAD_TOL = {"float32": GRAD_CHECK_TOL, "bfloat16": 2.0 ** -6}
+# the timed run: qwen2.5-32b at depth 64 -> DENSE_TRAIN_LAYERS, bf16,
+# AdamW, phase 9's batch shape; then qwen1.5-32b and mistral-large-123b
+# at depth 64 and 88 -> DENSE_TRAIN_CHECK_LAYERS, bf16, their own
+# optimizers, DENSE_TRAIN_CHECK_STEPS steps.  4 layers of qwen2.5-32b
+# are 3.51 B parameters (the vocabulary's two 152,064 x 5,120 leaves
+# 1.56 B of them): bf16 weights, float32 moments updated in place and
+# the float32 gradient sum, which the step drops before the update
+DENSE_TRAIN_LAYERS = 4
+DENSE_TRAIN_CHECK_LAYERS = 2
+DENSE_TRAIN_CHECK_STEPS = 2
 # the training kernels' wrappers by name, and the TPU kernel each stands
 # beside (the backward kernels replace none: the reference differentiates
 # its jnp forms)
@@ -372,6 +427,14 @@ TRAIN_REPLACES = {
                    "its jnp forms)",
     "topk_router_bwd": "backward; no TPU kernel (the reference "
                        "differentiates its jnp forms)"}
+# the dense configs' training instances (phases 3, 5 and 11): the
+# kernels line's name of each
+DENSE_LSE = "flash_attention_lse[D=128]"
+DENSE_BWD = {"bfloat16": "flash_attention_bwd[D=128 bf16]",
+             "float32": "flash_attention_bwd[D=128 float32]"}
+DENSE_RMS_BWD = "rmsnorm_bwd[d=5120,12288]"
+DENSE_TRAIN_KERNELS = (DENSE_LSE, DENSE_BWD["bfloat16"],
+                       DENSE_BWD["float32"], DENSE_RMS_BWD)
 PHASES = []                     # (header, start) of every phase
 
 
@@ -1604,9 +1667,11 @@ def dense_launched_by(key: str) -> list:
 def check_dense_refusals(torch, C, FA) -> None:
     """Phase 3: what the dense instances do not take raises on the card,
     and nothing falls back: a bf16 D=128 q off 16 bytes (TMA's rule; the
-    wgmma kernel is the only bf16 D=128 one) raises RuntimeError, and
-    attention with grad on at D=128 (no backward instance yet) raises
-    NotImplementedError before any launch."""
+    wgmma kernel is the only bf16 D=128 one) raises RuntimeError; and
+    attention with grad on at D=128 runs the training instance and the
+    backward kernel (one launch each), its gradients within BWD_TOL of
+    torch.autograd through the plain version, while at D=160 (no backward
+    instance) it raises NotImplementedError before any launch."""
     dev = torch.device("cuda")
     q, k, v = (C.to_dtype(x, "bfloat16").to(dev)
                for x in C.attn_inputs(1, 1, 10, 2, 64, 128))
@@ -1622,15 +1687,35 @@ def check_dense_refusals(torch, C, FA) -> None:
         raise AssertionError("flash_attention took a misaligned D=128 q")
     if not torch.equal(FA.flash_attention(q, k, v), want):
         raise AssertionError("flash_attention D=128 after a refusal differs")
-    before = FA.flash_attention_lse.launches
+    gen = torch.Generator(device=dev).manual_seed(12)
+    do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+    before = (FA.flash_attention_lse.launches,
+              FA.flash_attention_bwd.launches)
+    ins = [x.clone().requires_grad_() for x in (q, k, v)]
+    got = torch.autograd.grad(FA.flash_attention(*ins), ins, do)
+    torch.cuda.synchronize()
+    launched = (FA.flash_attention_lse.launches - before[0],
+                FA.flash_attention_bwd.launches - before[1])
+    ins = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(FA.flash_attention_ref(*ins), ins, do)
+    rel = max(C.within(g, w, "bfloat16") for g, w in zip(got, want))
+    log(f"  flash_attention with grad at D=128 bf16: launches (lse, bwd) "
+        f"{launched}, gradients within {rel:.3g} of the plain version's")
+    if launched != (1, 1) or rel > C.BWD_TOL["bfloat16"]:
+        raise AssertionError(f"training attention at D=128: launches "
+                             f"{launched}, error {rel}")
+    q6, k6, v6 = (C.to_dtype(x, "bfloat16").to(dev).requires_grad_()
+                  for x in C.attn_inputs(1, 1, 10, 2, 64, 160))
+    before = (FA.flash_attention_lse.launches, FA.flash_attention.launches)
     try:
-        FA.flash_attention(q.clone().requires_grad_(), k, v)
+        FA.flash_attention(q6, k6, v6)
     except NotImplementedError as e:
-        log(f"  flash_attention with grad at D=128: {e}")
+        log(f"  flash_attention with grad at D=160: {e}")
     else:
-        raise AssertionError("training attention at D=128 did not raise")
-    if FA.flash_attention_lse.launches != before:
-        raise AssertionError("training attention at D=128 launched")
+        raise AssertionError("training attention at D=160 did not raise")
+    if (FA.flash_attention_lse.launches,
+            FA.flash_attention.launches) != before:
+        raise AssertionError("training attention at D=160 launched")
 
 
 def decode_instance(torch, FD, b, hq, hkv, s, d) -> dict:
@@ -2324,16 +2409,20 @@ def check_training_kernels(torch, C, FA, RN, TR) -> dict:
     `check_rms_bwd`, `check_router_bwd`).  Returns the largest absolute
     error per kernel."""
     dev = torch.device("cuda")
-    errs = dict.fromkeys(TRAIN_KERNELS, 0.0)
+    errs = dict.fromkeys(TRAIN_KERNELS + DENSE_TRAIN_KERNELS, 0.0)
     for k, case in enumerate(C.TRAIN_ATTN_CASES):
         fwd, bwd = C.check_attn_train(FA, k, dev)
-        errs["flash_attention_lse"] = max(errs["flash_attention_lse"], fwd)
-        errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], bwd)
+        lse_key, bwd_key = ("flash_attention_lse", "flash_attention_bwd") \
+            if case[1]["d"] < 128 else (DENSE_LSE, DENSE_BWD[case[2]])
+        errs[lse_key] = max(errs[lse_key], fwd)
+        errs[bwd_key] = max(errs[bwd_key], bwd)
         log(f"  flash_attention_lse / _bwd {case[0]}: abs err {fwd:.3g} / "
             f"{bwd:.3g}")
     for k, case in enumerate(C.RMS_BWD_CASES):
         e = C.check_rms_bwd(RN, k, dev)
-        errs["rmsnorm_bwd"] = max(errs["rmsnorm_bwd"], e)
+        key = DENSE_RMS_BWD if case[1]["shape"][-1] in T.DENSE_RMS_D \
+            else "rmsnorm_bwd"
+        errs[key] = max(errs[key], e)
         log(f"  rmsnorm_bwd {case[0]}: abs err {e:.3g}")
     for k, case in enumerate(C.ROUTER_BWD_CASES):
         e = C.check_router_bwd(TR, k, dev)
@@ -2344,99 +2433,115 @@ def check_training_kernels(torch, C, FA, RN, TR) -> dict:
 
 def measure_training(torch, C, FA, RN, TR, errs) -> list:
     """Phase 5, the training kernels at the shapes of phase 9's full run
-    (a microbatch of 4 x 256 tokens, bf16): device time per call of the
-    kernel, of its plain version and of one PyTorch call of the same
-    function (the backward through scaled_dot_product_attention and the
-    backward of F.rms_norm, each the time of forward and backward less
-    the forward's, both captured whole: autograd runs a backward on its
-    forward's stream; none for the router), beside the bound: the
+    (a microbatch of 4 x 256 tokens, bf16; `timing.train_calls`): device
+    time per call
+    of the kernel, of its plain version and of one PyTorch call of the
+    same function (the backward through scaled_dot_product_attention and
+    the backward of F.rms_norm, each the time of forward and backward
+    less the forward's, both captured whole: autograd runs a backward on
+    its forward's stream; none for the router), beside the bound: the
     bytes each input is read once and each output written once, or the
     flops (the backward's 2.5 times the forward's causal matmul flops).
     `launches` is filled from phase 9."""
-    import torch.nn.functional as F
     dev = torch.device("cuda")
-    bf = torch.bfloat16
-    b, hq, hkv, s, d = TRAIN_MICRO, 16, 8, TRAIN_SEQ, 64
-    rows, dm, e, k = TRAIN_MICRO * TRAIN_SEQ, 1024, 32, 8
-    gen = torch.Generator(device=dev).manual_seed(9)
-
-    def randn(*shape, dtype=bf):
-        return torch.randn(shape, generator=gen, device=dev).to(dtype)
-
-    q, kk, v = randn(b, hq, s, d), randn(b, hkv, s, d), randn(b, hkv, s, d)
-    do = randn(b, hq, s, d)
-    o, lse = FA.flash_attention_lse(q, kk, v)
-    fwd_flops = 4 * d * b * hq * s * (s + 1) / 2
-    qkv_bytes = 2 * d * s * b * (2 * hq + 2 * hkv)      # q, k, v in; o out
-
-    def sdpa(backward):
-        ts = [t.detach().requires_grad_(backward) for t in (q, kk, v)]
-        out = F.scaled_dot_product_attention(*ts, is_causal=True,
-                                             enable_gqa=True)
-        if backward:
-            torch.autograd.grad(out, ts, do)
-
-    x = randn(rows, dm)
-    w = torch.rand(dm, generator=gen, device=dev) + 0.5
-    dy = randn(rows, dm)
-    w_bf = w.to(bf)             # F.rms_norm takes the weight in x's type
-
-    def rms(backward):
-        xr, wr = (t.detach().requires_grad_(backward) for t in (x, w_bf))
-        out = F.rms_norm(xr, (dm,), wr, 1e-6)
-        if backward:
-            torch.autograd.grad(out, (xr, wr), dy)
-
-    def backward_only(fwd_bwd):
-        return lambda: T.device_ms(lambda: fwd_bwd(True)) \
-            - T.device_ms(lambda: fwd_bwd(False))
+    attn, rms = T.train_calls(C, FA, RN, dev)
+    out = [call_record(attn, "flash_attention_lse",
+                       TRAIN_REPLACES["flash_attention_lse"],
+                       errs["flash_attention_lse"], BF16_FLOPS,
+                       prefix="fwd_"),
+           call_record(attn, "flash_attention_bwd",
+                       TRAIN_REPLACES["flash_attention_bwd"],
+                       errs["flash_attention_bwd"], BF16_FLOPS),
+           call_record(rms, "rmsnorm_bwd", TRAIN_REPLACES["rmsnorm_bwd"],
+                       errs["rmsnorm_bwd"], OPS_PER_S)]
+    rows, e, k = TRAIN_MICRO * TRAIN_SEQ, 32, 8
     logits = C.to_torch(C.router_inputs(9, rows, e)).to(dev)
     rw, ridx = TR.topk_router(logits, k)
-    rdw = randn(rows, k, dtype=torch.float32)
-    shape_attn = f"q [{b},{hq},{s},{d}] k/v [{b},{hkv},{s},{d}] bf16 causal"
-    calls = [
-        ("flash_attention_lse", "flash_attention", shape_attn,
-         lambda: FA.flash_attention_lse(q, kk, v),
-         lambda: FA.flash_attention_lse_ref(q, kk, v),
-         lambda: T.device_ms(lambda: sdpa(False)),
-         qkv_bytes + 4 * b * hq * s, fwd_flops, BF16_FLOPS),
-        ("flash_attention_bwd", "flash_attention_bwd", shape_attn,
-         lambda: FA.flash_attention_bwd(q, kk, v, o, do, lse),
-         lambda: FA.flash_attention_bwd_ref(q, kk, v, o, do, lse),
-         backward_only(sdpa),
-         # q, k, v, o, dO and lse in; dQ, dK, dV out
-         2 * d * s * b * (4 * hq + 4 * hkv) + 4 * b * hq * s,
-         2.5 * fwd_flops, BF16_FLOPS),
-        ("rmsnorm_bwd", "rmsnorm_bwd", f"x/dy [{rows},{dm}] bf16, w f32",
-         lambda: RN.rmsnorm_bwd(x, w, dy),
-         lambda: RN.rmsnorm_bwd_ref(x, w, dy),
-         backward_only(rms),
-         3 * 2 * rows * dm + 8 * dm, 10 * rows * dm, OPS_PER_S),
-        ("topk_router_bwd", "topk_router_bwd",
-         f"w/idx/dw [{rows},{k}] -> dlogits [{rows},{e}] f32",
-         lambda: TR.topk_router_bwd(rw, ridx, rdw, e),
-         lambda: TR.topk_router_bwd_ref(rw, ridx, rdw, e),
-         None, 12 * rows * k + 4 * rows * e, rows * (3 * k + e), OPS_PER_S)]
-    out = []
-    for name, src, shape, fn, plain, library, nbytes, flops, rate in calls:
-        b_ms, b_by = bound(nbytes, flops, rate)
-        rec = {"name": name, "route": "cuda",
-               "source": f"src/repro_torch/csrc/{src}.cu",
-               "replaces": TRAIN_REPLACES[name], "launches": None,
-               "max_abs_err": errs[name], "ms": T.device_ms(fn),
-               "plain_ms": T.device_ms(plain), "bound_ms": b_ms,
-               "bound_by": b_by,
-               "library_ms": library() if library else None,
-               "shape": shape, "eager_ms": T.eager_ms(fn)}
-        if library is None:
-            rec["library_note"] = "no one PyTorch call computes it"
-        lib = "none" if rec["library_ms"] is None \
-            else f"{rec['library_ms']:.5f}"
-        log(f"  {name} {shape}: {rec['ms']:.5f} ms/call (plain "
-            f"{rec['plain_ms']:.5f}, library {lib}), eager "
-            f"{rec['eager_ms']:.5f} ms, bound {b_ms:.7f} ms ({b_by})")
-        out.append(rec)
+    rdw = torch.randn((rows, k), generator=torch.Generator(
+        device=dev).manual_seed(9), device=dev)
+    router = {"name": "topk_router_bwd", "shape":
+              f"w/idx/dw [{rows},{k}] -> dlogits [{rows},{e}] f32",
+              "fn": lambda: TR.topk_router_bwd(rw, ridx, rdw, e),
+              "plain": lambda: TR.topk_router_bwd_ref(rw, ridx, rdw, e),
+              "library": lambda: None,
+              "bytes": 12 * rows * k + 4 * rows * e,
+              "ops": rows * (3 * k + e)}
+    out.append(call_record(router, "topk_router_bwd",
+                           TRAIN_REPLACES["topk_router_bwd"],
+                           errs["topk_router_bwd"], OPS_PER_S))
+    out[-1]["library_note"] = "no one PyTorch call computes it"
     return out
+
+
+def call_record(call: dict, name: str, replaces: str, err: float,
+                rate: float, prefix: str = "") -> dict:
+    """A kernels-line record of one timed call of `timing` (its keys
+    `fn`, `plain`, `library`, `bytes`, `ops`, or with `prefix` "fwd_" the
+    forward's): device ms of the kernel, its plain version and the
+    library call, eager ms, and the bound at `rate` operations a
+    second."""
+    def get(key):
+        return call[prefix + key]
+    fn = call["fwd"] if prefix else call["fn"]
+    src = "flash_attention" if prefix else call["name"]
+    b_ms, b_by = bound(get("bytes"), get("ops"), rate)
+    rec = {"name": name, "route": "cuda",
+           "source": f"src/repro_torch/csrc/{src}.cu",
+           "replaces": replaces, "launches": None, "max_abs_err": err,
+           "ms": T.device_ms(fn), "plain_ms": T.device_ms(get("plain")),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": get("library")(), "shape": call["shape"],
+           "eager_ms": T.eager_ms(fn)}
+    lib = "none" if rec["library_ms"] is None \
+        else f"{rec['library_ms']:.5f}"
+    log(f"  {name} {call['shape']}: {rec['ms']:.5f} ms/call (plain "
+        f"{rec['plain_ms']:.5f}, library {lib}), eager "
+        f"{rec['eager_ms']:.5f} ms, bound {b_ms:.7f} ms ({b_by})")
+    return rec
+
+
+def measure_dense_training(torch, C, FA, RN, errs) -> list:
+    """Phase 5, the dense configs' training instances at their training
+    microbatch (`timing.dense_train_calls`: 4 x 256 tokens): attention's
+    training forward at D=128 (`flash_attention_lse[D=128]`, beside
+    SDPA's forward) and the backward at D=128 in bf16 (one shape a
+    config, with the kernel's registers and spilled bytes) and in
+    float32 (qwen2.5-32b's heads), beside the backward through SDPA;
+    `rmsnorm_bwd` at d 5120 and 12288 beside F.rms_norm's backward.
+    Records as `call_record`'s, each with its shapes under `by_shape`;
+    `launches` is filled from phase 11."""
+    dev = torch.device("cuda")
+    out = {}
+    for call in T.dense_train_calls(C, FA, RN, dev):
+        if call["name"] == "rmsnorm_bwd":
+            recs = [call_record(call, DENSE_RMS_BWD,
+                                TRAIN_REPLACES["rmsnorm_bwd"],
+                                errs[DENSE_RMS_BWD], OPS_PER_S)]
+        else:
+            bf = "float32" not in call["shape"]
+            key = DENSE_BWD["bfloat16" if bf else "float32"]
+            rec = call_record(call, key,
+                              TRAIN_REPLACES["flash_attention_bwd"],
+                              errs[key], BF16_FLOPS if bf else OPS_PER_S)
+            rec["config"] = call["config"]
+            recs = [rec]
+            if bf:
+                kw = call["kw"]
+                rec.update(FA.bwd_attributes(128))
+                log(f"    group {kw['hq'] // kw['hkv']}: {rec['registers']} "
+                    f"registers, {rec['local_bytes']} local bytes a thread")
+                fwd = call_record(call, DENSE_LSE,
+                                  TRAIN_REPLACES["flash_attention_lse"],
+                                  errs[DENSE_LSE], BF16_FLOPS,
+                                  prefix="fwd_")
+                fwd["config"] = call["config"]
+                recs.append(fwd)
+        for rec in recs:
+            if rec["name"] in out:
+                out[rec["name"]]["by_shape"].append(rec)
+            else:
+                out[rec["name"]] = rec | {"by_shape": [rec]}
+    return list(out.values())
 
 
 def train_wrappers():
@@ -2454,18 +2559,18 @@ def train_wrappers():
             "topk_router_bwd": TR.topk_router_bwd}
 
 
-def grad_check(torch) -> dict:
-    """Phase 9 (1): one full-width granite block, dense and MoE, in
-    float32 through torch.autograd on the card, against the same block
-    with every kernel swapped for its plain version (the layers'
-    `rmsnorm` and `blockwise_attention` and the MoE's router patched to
-    `rmsnorm_ref`, `flash_attention_ref` and `topk_router_ref`, which
-    torch.autograd differentiates): every gradient leaf, and the input's,
-    within GRAD_CHECK_TOL of relative norm.  The kernel run must launch
-    every training kernel of the block, the plain run none."""
-    import dataclasses
-
-    from repro_torch.configs import granite_moe_1b
+def block_grad_check(torch, cfg, kind: str, shape: tuple, seed: int,
+                     tol: float, label: str) -> dict:
+    """One full-width block of `cfg` (FFN `kind`) on a [B, S, d] input
+    (`shape` = (B, S)) through torch.autograd on the card, against the
+    same block with every kernel swapped for its plain version (the
+    layers' `rmsnorm` and `blockwise_attention` and the MoE's router
+    patched to `rmsnorm_ref`, `flash_attention_ref` and
+    `topk_router_ref`, which torch.autograd differentiates): every
+    gradient leaf, and the input's, within `tol` of relative norm.  QKV
+    biases, where the config has them, are drawn nonzero (`lm_init`
+    draws zeros).  The kernel run must launch every training kernel of
+    the block, the plain run none."""
     from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.kernels.rmsnorm import ops as RN
     from repro_torch.kernels.topk_router import ops as TR
@@ -2473,73 +2578,99 @@ def grad_check(torch) -> dict:
     from repro_torch.models import moe as M
     from repro_torch.models import transformer as TM
     dev = torch.device("cuda")
-    cfg = dataclasses.replace(granite_moe_1b.CONFIG, dtype="float32")
-    b, s = GRAD_CHECK_SHAPE
+    b, s = shape
     plain = {(L, "rmsnorm"): lambda x, w, eps=1e-6: RN.rmsnorm_ref(x, w, eps),
              (L, "blockwise_attention"):
                  lambda q, k, v, scale=None: FA.flash_attention_ref(
                      q, k, v, scale=scale),
              (M, "topk_router"): TR.topk_router_ref}
-    out = {}
-    for kind in ("dense", "moe"):
-        gen = torch.Generator(device=dev).manual_seed(11)
-        p = TM.block_init(gen, cfg, kind)
-        h = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
-        r = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
-        pos = torch.arange(s, device=dev).expand(b, s)
-        live = TM.tree_map(lambda x: x.detach().requires_grad_(True), p)
-        leaves = [x for _, x in _named_leaves(live)]
-        hh = h.requires_grad_(True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = TM.block_init(gen, cfg, kind)
+    if cfg.qkv_bias:
+        for name in ("bias_q", "bias_k", "bias_v"):
+            x = p["attn"][name]
+            p["attn"][name] = ((torch.rand(x.shape, generator=gen, device=dev)
+                                * 2 - 1) * cfg.d_model ** -0.5).to(x.dtype)
+    h = torch.randn((b, s, cfg.d_model), generator=gen,
+                    device=dev).to(p["attn"]["wq"].dtype)
+    r = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+    pos = torch.arange(s, device=dev).expand(b, s)
+    live = TM.tree_map(lambda x: x.detach().requires_grad_(True), p)
+    named = list(_named_leaves(live))
+    hh = h.requires_grad_(True)
 
-        def grads():
-            y, aux = TM.block_train(live, cfg, kind, hh, pos)
-            return torch.autograd.grad((y * r).sum() + aux, leaves + [hh])
-        wrappers = train_wrappers()
-        for fn in wrappers.values():
-            fn.launches = 0
-        got = grads()
+    def grads():
+        y, aux = TM.block_train(live, cfg, kind, hh, pos)
+        return torch.autograd.grad((y.float() * r).sum() + aux,
+                                   [x for _, x in named] + [hh])
+    wrappers = train_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    got = grads()
+    torch.cuda.synchronize()
+    launched = {n: fn.launches for n, fn in wrappers.items()}
+    saved = {key: getattr(*key) for key in plain}
+    try:
+        for (mod, name), fn in plain.items():
+            setattr(mod, name, fn)
+        want = grads()
         torch.cuda.synchronize()
-        launched = {n: fn.launches for n, fn in wrappers.items()}
-        saved = {key: getattr(*key) for key in plain}
-        try:
-            for (mod, name), fn in plain.items():
-                setattr(mod, name, fn)
-            want = grads()
-            torch.cuda.synchronize()
-        finally:
-            for (mod, name), fn in saved.items():
-                setattr(mod, name, fn)
-        plain_launched = sum(fn.launches for fn in wrappers.values()) \
-            - sum(launched.values())
-        need = ["rmsnorm", "flash_attention_lse", "flash_attention_bwd",
-                "rmsnorm_bwd"] + (["topk_router", "topk_router_bwd"]
-                                  if kind == "moe" else [])
-        if any(not launched[n] for n in need) or plain_launched:
-            raise AssertionError(f"grad check {kind}: kernel launches "
-                                 f"{launched}, plain run {plain_launched}")
-        rel = [float((g - w).norm() / w.norm().clamp(min=1e-30))
-               for g, w in zip(got, want)]
-        out[kind] = {"max_rel_err": max(rel), "leaves": len(rel),
-                     "launches": launched}
-        log(f"  {kind} block [{b},{s},{cfg.d_model}] f32: {len(rel)} "
-            f"gradients, largest relative error {max(rel):.3g}; "
-            f"launches {launched}")
-        if max(rel) > GRAD_CHECK_TOL or not all(
-                bool(torch.isfinite(g).all()) for g in got):
-            raise AssertionError(f"grad check {kind}: relative errors {rel}")
-    return out
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+    plain_launched = sum(fn.launches for fn in wrappers.values()) \
+        - sum(launched.values())
+    need = ["rmsnorm", "flash_attention_lse", "flash_attention_bwd",
+            "rmsnorm_bwd"] + (["topk_router", "topk_router_bwd"]
+                              if kind == "moe" else [])
+    if any(not launched[n] for n in need) or plain_launched:
+        raise AssertionError(f"grad check {label}: kernel launches "
+                             f"{launched}, plain run {plain_launched}")
+    rel = [float((g.float() - w.float()).norm()
+                 / w.float().norm().clamp(min=1e-30))
+           for g, w in zip(got, want)]
+    worst = sorted(zip(rel, [n for n, _ in named] + ["input"]),
+                   reverse=True)[:3]
+    log(f"  {label} block [{b},{s},{cfg.d_model}] ({cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads{', QKV bias' if cfg.qkv_bias else ''}): "
+        f"{len(rel)} gradients, largest relative error {max(rel):.3g} (tol "
+        f"{tol:.3g}; worst {', '.join(f'{n} {e:.3g}' for e, n in worst)}); "
+        f"launches {launched}")
+    if max(rel) > tol or not all(bool(torch.isfinite(g).all())
+                                 for g in got):
+        raise AssertionError(f"grad check {label}: relative errors {rel}")
+    return {"max_rel_err": max(rel), "leaves": len(rel), "tol": tol,
+            "worst": [[n, e] for e, n in worst], "launches": launched}
 
 
-def full_step_grads(torch) -> dict:
-    """Phase 9 (1): one lm_loss step of the full 24-layer bf16 model on a
-    training microbatch: every parameter leaf's gradient must be finite
-    with a nonzero norm (a kernel output outside the autograd graph
-    leaves its inputs' leaves without one)."""
+def grad_check(torch) -> dict:
+    """Phase 9 (1): one full-width granite block, dense and MoE, in
+    float32 (`block_grad_check` on a GRAD_CHECK_SHAPE input, within
+    GRAD_CHECK_TOL)."""
+    import dataclasses
+
+    from repro_torch.configs import granite_moe_1b
+    cfg = dataclasses.replace(granite_moe_1b.CONFIG, dtype="float32")
+    return {kind: block_grad_check(torch, cfg, kind, GRAD_CHECK_SHAPE, 11,
+                                   GRAD_CHECK_TOL, f"{kind} f32")
+            for kind in ("dense", "moe")}
+
+
+def full_step_grads(torch, cfg=None, label="full model") -> dict:
+    """Phase 9 (1): one lm_loss step of the bf16 model at full width and
+    TRAIN_LAYERS layers (or of `cfg`) on a training microbatch: every
+    parameter leaf's gradient must be finite with a nonzero norm (a
+    kernel output outside the autograd graph leaves its inputs' leaves
+    without one)."""
+    import dataclasses
+
     from repro_torch.configs import granite_moe_1b
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.models.registry import build
     from repro_torch.train.train_step import value_and_grad
-    cfg = granite_moe_1b.CONFIG
+    if cfg is None:
+        cfg = dataclasses.replace(granite_moe_1b.CONFIG,
+                                  n_layers=TRAIN_LAYERS)
     model = build(cfg)
     params = model.init(1, "cuda")
     pipe = TokenPipeline(cfg.vocab, TRAIN_MICRO, TRAIN_SEQ, seed=1,
@@ -2549,7 +2680,7 @@ def full_step_grads(torch) -> dict:
     (loss, metrics), grads = value_and_grad(model.loss, params, batch)
     norms = {p: float(g.float().norm()) for p, g in _named_leaves(grads)}
     bad = {k: v for k, v in norms.items() if not (v > 0 and v < float("inf"))}
-    log(f"  full model, one microbatch: loss {float(loss):.6f} (xent "
+    log(f"  {label}, one microbatch: loss {float(loss):.6f} (xent "
         f"{float(metrics['xent']):.6f}, aux {float(metrics['aux']):.6f}); "
         f"{len(norms)} gradient leaves, smallest norm "
         f"{min(norms.values()):.4g} ({min(norms, key=norms.get)})")
@@ -2565,10 +2696,12 @@ def full_step_grads(torch) -> dict:
 def golden_train(torch) -> dict:
     """Phase 9 (2): the golden run (`repro_torch.train.golden.run`) on the
     card, on the golden's own batches, held to
-    golden/granite_moe_train.json within `golden.TOL`; and how many of
+    golden/granite_moe_train.json within `golden.GRANITE.tol`; and how
+    many of
     those tokens this machine's `TokenPipeline` draws otherwise (numpy's
     zipf differs between numpy versions; logged, not held)."""
     from repro_torch.train import golden as G
+    spec = G.GRANITE
     doc = G.load()
     want = G.batches(doc, "cuda")
     drawn = G.pipeline_batches("cuda")
@@ -2577,16 +2710,16 @@ def golden_train(torch) -> dict:
     t0 = time.perf_counter()
     rec = G.run("cuda", want)
     gap = G.compare(doc, rec)
-    log(f"  golden config (full width, {G.N_LAYERS} layers, f32, batch "
-        f"{G.BATCH}x{G.SEQ}, microbatch {G.MICROBATCH}, adamw, {G.STEPS} "
-        f"steps) in {time.perf_counter() - t0:.2f} s: losses "
+    log(f"  golden config (full width, {spec.n_layers} layers, f32, batch "
+        f"{spec.batch}x{spec.seq}, microbatch {spec.microbatch}, adamw, "
+        f"{spec.steps} steps) in {time.perf_counter() - t0:.2f} s: losses "
         f"{[s['loss'] for s in rec['steps']]}; relative gap to the JAX run "
-        f"{gap} (tol {G.TOL}); this machine's TokenPipeline draws "
-        f"{differ} of the golden's {G.STEPS * G.BATCH * G.SEQ} tokens "
-        f"otherwise (numpy {__import__('numpy').__version__})")
-    if max(gap.values()) > G.TOL:
+        f"{gap} (tol {spec.tol}); this machine's TokenPipeline draws "
+        f"{differ} of the golden's {spec.steps * spec.batch * spec.seq} "
+        f"tokens otherwise (numpy {__import__('numpy').__version__})")
+    if max(gap.values()) > spec.tol:
         raise AssertionError(f"golden training run off by {gap}")
-    return {"steps": rec["steps"], "gap": gap, "tol": G.TOL,
+    return {"steps": rec["steps"], "gap": gap, "tol": spec.tol,
             "pipeline_tokens_differing": differ}
 
 
@@ -2605,17 +2738,20 @@ def _params_equal(torch, a: dict, b: dict) -> bool:
 
 
 def full_run(torch) -> dict:
-    """Phase 9 (3): `Trainer` on the full model (24 layers, bf16, batch
-    8 x 256 in microbatches of 4, AdamW, remat full): 1 warm-up step and
+    """Phase 9 (3): `Trainer` on the model at full width and TRAIN_LAYERS
+    layers (bf16, batch 8 x 256 in microbatches of 4, AdamW, remat full):
+    1 warm-up step and
     4 timed, with every training kernel's launch count set to 0 just
     before and read just after; losses finite; step ms (median of the
     timed steps), tokens/s, peak memory; then two runs of the same 2
     steps, bitwise equal in loss and parameters; then one step under
     torch.profiler for the device's busy time and idle share."""
+    import dataclasses
+
     from repro_torch.configs import granite_moe_1b
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.train.trainer import TrainConfig, Trainer
-    cfg = granite_moe_1b.CONFIG
+    cfg = dataclasses.replace(granite_moe_1b.CONFIG, n_layers=TRAIN_LAYERS)
     tcfg = TrainConfig(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                        microbatch=TRAIN_MICRO, log_every=1)
     wrappers = train_wrappers()
@@ -2631,7 +2767,8 @@ def full_run(torch) -> dict:
     step_s = statistics.median(tr_step_times[1:])
     tokens = TRAIN_BATCH * TRAIN_SEQ
     per_step = {n: c / TRAIN_STEPS for n, c in launches.items()}
-    log(f"  full model: losses {losses}; step s {tr.step_times}; median "
+    log(f"  {TRAIN_LAYERS} layers: losses {losses}; step s "
+        f"{tr.step_times}; median "
         f"of the timed steps {step_s * 1e3:.3f} ms, {tokens / step_s:.1f} "
         f"tokens/s; peak memory {peak / 2**30:.3f} GiB")
     log(f"    launches in the run: {launches}; a step: {per_step}")
@@ -2690,39 +2827,49 @@ def full_run(torch) -> dict:
             "repeat_bitwise": same}
 
 
-def restart_run(torch) -> dict:
-    """Phase 9 (4): `Trainer` at the golden size, 3 steps, with a
-    checkpoint every 2 steps and a failure injected at step 2 (after the
-    step-2 checkpoint) restarts once, and its final parameters are
-    bitwise the uninterrupted run's."""
+def restart_run(torch, spec=None, base=None) -> dict:
+    """Phase 9 (4), phase 11 (2): `Trainer` at the size of the golden
+    `spec` (default granite's), from its numpy weights (`base`, their
+    tree on the card, or drawn here), 3 steps, with a checkpoint every 2
+    steps and a failure injected at step 2 (after the step-2 checkpoint)
+    restarts once, and its final parameters are bitwise the
+    uninterrupted run's."""
     import shutil
     import tempfile
 
     from repro_torch import convert
+    from repro_torch.models import transformer as TM
     from repro_torch.train import golden as G
     from repro_torch.train.trainer import TrainConfig, Trainer
-    cfg = G.config()
+    spec = spec or G.GRANITE
+    cfg = G.config(spec)
+    if base is None:
+        base = convert.lm_params_to_torch(
+            convert.numpy_lm_params(cfg, spec.seed), "cuda")
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     ckpt = tempfile.mkdtemp(prefix="train_ckpt_", dir=os.path.join(ROOT,
                                                                   "build"))
     finals, restarts = [], []
+    t0 = time.perf_counter()
     try:
         for ckpt_dir, fail_at in ((None, None), (ckpt, 2)):
-            tcfg = TrainConfig(steps=3, batch=G.BATCH, seq=G.SEQ,
-                               microbatch=G.MICROBATCH, lr=G.LR,
-                               warmup=G.WARMUP, ckpt_dir=ckpt_dir,
+            tcfg = TrainConfig(steps=3, batch=spec.batch, seq=spec.seq,
+                               microbatch=spec.microbatch, lr=spec.lr,
+                               warmup=spec.warmup, ckpt_dir=ckpt_dir,
                                ckpt_every=2, log_every=1)
             tr = Trainer(cfg, tcfg, device="cuda")
-            params = convert.lm_params_to_torch(
-                convert.numpy_lm_params(cfg, G.SEED), "cuda")
+            params = TM.tree_map(torch.clone, base)
             finals.append(tr.run(fail_at=fail_at, params=params)["params"])
             restarts.append(tr.restarts)
+            del tr, params
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     same = _params_equal(torch, finals[0], finals[1])
-    log(f"  golden size, 3 steps, checkpoint every 2, failure at step 2: "
-        f"restarts {restarts[1]}; final parameters bitwise the "
-        f"uninterrupted run's: {same}")
+    log(f"  {spec.arch} golden size, 3 steps, checkpoint every 2, failure "
+        f"at step 2: restarts {restarts[1]}; final parameters bitwise the "
+        f"uninterrupted run's: {same} ({time.perf_counter() - t0:.1f} s)")
+    del finals
+    torch.cuda.empty_cache()
     if restarts != [0, 1] or not same:
         raise AssertionError(f"restart run: restarts {restarts}, equal "
                              f"{same}")
@@ -2756,6 +2903,270 @@ def train_child(torch) -> int:
     return 0
 
 
+def dense_train_launches(rec: dict, launches: dict) -> None:
+    """Fill a dense training instance's kernels-line record (and each of
+    its shapes) with its launches in phase 11: the bf16 instances' in the
+    bf16 run of the shape's config (`rmsnorm_bwd[d=5120,12288]`: d 5120
+    in the two qwens', 12288 in mistral-large-123b's), the float32
+    backward's in the golden run."""
+    if rec["name"] == DENSE_BWD["float32"]:
+        n = launches["mistral-large-123b float32 golden"][
+            "flash_attention_bwd"]
+        for sub in rec["by_shape"]:
+            sub["launches"] = n
+        rec["launches"] = n
+        return
+    wrapper = rec["name"].split("[")[0]
+    total = 0
+    for sub in rec["by_shape"]:
+        if rec["name"] == DENSE_RMS_BWD:
+            names = [c for c in launches if c.endswith("bfloat16")
+                     and (c.startswith("mistral") == ("12288" in
+                                                      sub["shape"]))]
+        else:
+            names = [f"{sub['config']} bfloat16"]
+        sub["launches"] = sum(launches[c][wrapper] for c in names)
+        total += sub["launches"]
+    rec["launches"] = total
+
+
+def dense_grad_check(torch) -> dict:
+    """Phase 11 (1): one full-width block of each dense config
+    (qwen2.5-32b: d 5120, 40/8 heads, QKV bias; qwen1.5-32b: 40/40, bias;
+    mistral-large-123b: d 12288, 96/8), in float32 and in bf16
+    (`block_grad_check` on a DENSE_GRAD_SHAPE input, within
+    DENSE_GRAD_TOL of the type)."""
+    import dataclasses
+
+    from repro_torch.configs import mistral_large_123b, qwen1_5_32b, \
+        qwen2_5_32b
+    out = {}
+    for base in (qwen2_5_32b.CONFIG, qwen1_5_32b.CONFIG,
+                 mistral_large_123b.CONFIG):
+        for dtype in ("float32", "bfloat16"):
+            key = f"{base.name} {dtype}"
+            out[key] = block_grad_check(
+                torch, dataclasses.replace(base, dtype=dtype), "dense",
+                DENSE_GRAD_SHAPE, 13, DENSE_GRAD_TOL[dtype], key)
+            torch.cuda.empty_cache()
+    return out
+
+
+def dense_golden_train(torch) -> dict:
+    """Phase 11 (2): the golden run of mistral-large-123b
+    (`train.golden.MISTRAL_LARGE`: full width, 1 layer, float32, numpy
+    weights, 3 Adafactor steps of 2 x 64 tokens) on the golden's batches,
+    held to `golden/mistral_large_train.json` within its `tol`; a second
+    run bitwise the first (losses and parameters); then `restart_run` at
+    that size.  The float32 D=128 backward's launches are the first
+    run's."""
+    from repro_torch import convert
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.models import transformer as TM
+    from repro_torch.train import golden as G
+    spec = G.MISTRAL_LARGE
+    doc = G.load(spec.path)
+    want = G.batches(doc, "cuda")
+    cfg = G.config(spec)
+    t0 = time.perf_counter()
+    base = convert.lm_params_to_torch(
+        convert.numpy_lm_params(cfg, spec.seed), "cuda")
+    init_s = time.perf_counter() - t0
+    runs = []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        before = FA.flash_attention_bwd.launches
+        rec = G.run("cuda", want, spec, TM.tree_map(torch.clone, base))
+        torch.cuda.synchronize()
+        rec["launches"] = FA.flash_attention_bwd.launches - before
+        rec["s"] = time.perf_counter() - t1
+        runs.append(rec)
+    gap = G.compare(doc, runs[0])
+    same = [st["loss"] for st in runs[0]["steps"]] \
+        == [st["loss"] for st in runs[1]["steps"]] \
+        and _params_equal(torch, runs[0]["params"], runs[1]["params"])
+    n_par = sum(x.numel() for _, x in _named_leaves(runs[0]["params"]))
+    log(f"  golden {spec.arch} ({', '.join(spec.reduced)}; "
+        f"{n_par / 1e9:.3f} B parameters, numpy weights on the card in "
+        f"{init_s:.1f} s), "
+        f"{spec.optimizer}: runs of {runs[0]['s']:.2f} and "
+        f"{runs[1]['s']:.2f}"
+        f" s; losses {[st['loss'] for st in runs[0]['steps']]}; relative "
+        f"gap to the JAX run {gap} (tol {spec.tol}); rerun bitwise: {same}")
+    if max(gap.values()) > spec.tol:
+        raise AssertionError(f"golden {spec.arch} training run off by "
+                             f"{gap}")
+    if not same:
+        raise AssertionError(f"two golden {spec.arch} runs differ")
+    launches = runs[0]["launches"]
+    steps = runs[0]["steps"]
+    del runs
+    torch.cuda.empty_cache()
+    restart = restart_run(torch, spec, base)
+    del base
+    torch.cuda.empty_cache()
+    return {"steps": steps, "gap": gap, "tol": spec.tol,
+            "rerun_bitwise": same, "restart": restart, "params": n_par,
+            "launches": {"flash_attention_bwd": launches}}
+
+
+def dense_timed_train(torch) -> dict:
+    """Phase 11 (3): `Trainer` on qwen2.5-32b at full width and
+    DENSE_TRAIN_LAYERS layers (bf16, batch 8 x 256 in microbatches of 4,
+    AdamW, remat full; `lm_init` on the card): 1 warm-up step and 4
+    timed, with the training kernels' launch counts set to 0 just before
+    and read just after; `flash_attention_bwd` once a layer a microbatch
+    a step; finite losses, step ms (median of the timed steps), tokens/s,
+    peak memory, launches a step; then one step under torch.profiler
+    (device busy time, idle share, device time by kernel name); then
+    one microbatch's gradient in every leaf finite and nonzero."""
+    import dataclasses
+
+    from repro_torch.configs import qwen2_5_32b
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    cfg = dataclasses.replace(qwen2_5_32b.CONFIG,
+                              n_layers=DENSE_TRAIN_LAYERS)
+    tcfg = TrainConfig(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                       microbatch=TRAIN_MICRO, log_every=1)
+    wrappers = train_wrappers()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    tr = Trainer(cfg, tcfg, device="cuda")
+    state = tr.run()
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    n_par = sum(x.numel() for _, x in _named_leaves(state["params"]))
+    losses = [m["loss"] for m in tr.metrics_log]
+    step_times = list(tr.step_times)
+    step_s = statistics.median(step_times[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    per_step = {n: c / TRAIN_STEPS for n, c in launches.items()}
+    log(f"  {cfg.name}, {DENSE_TRAIN_LAYERS} layers, bf16 "
+        f"({n_par / 1e9:.3f} B parameters): losses {losses}; step s "
+        f"{step_times}; median of the timed steps {step_s * 1e3:.3f} ms,"
+        f" {tokens / step_s:.1f} tokens/s; peak memory "
+        f"{peak / 2**30:.3f} GiB")
+    log(f"    launches in the run: {launches}; a step: {per_step}")
+    want_bwd = TRAIN_STEPS * (TRAIN_BATCH // TRAIN_MICRO) \
+        * DENSE_TRAIN_LAYERS
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite losses {losses}")
+    if launches["flash_attention_bwd"] != want_bwd or launches[
+            "flash_attention"] or not all(
+            launches[n] for n in ("rmsnorm", "flash_attention_lse",
+                                  "rmsnorm_bwd")):
+        raise AssertionError(f"training launches {launches}, want "
+                             f"{want_bwd} of flash_attention_bwd")
+    pipe = TokenPipeline(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=tcfg.seed,
+                         device="cuda")
+    batch = next(pipe)
+    pipe.close()
+    params, opt = state["params"], state["opt"]
+    step_fn = tr._step_fn
+    busy_s, kernels = device_busy(torch,
+                                  lambda: step_fn(params, opt, batch))
+    top = sorted(kernels, key=_dev_us, reverse=True)[:12]
+    prof = {"device_busy_ms": busy_s * 1e3, "step_ms": step_s * 1e3,
+            "idle_share": 1.0 - busy_s / step_s,
+            "kernel_launches": sum(e.count for e in kernels),
+            "top": [{"name": e.key[:60], "count": e.count,
+                     "device_ms": _dev_us(e) / 1e3} for e in top]}
+    log(f"  one step under torch.profiler: device busy "
+        f"{prof['device_busy_ms']:.3f} ms of {prof['step_ms']:.3f} ms: "
+        f"idle share {prof['idle_share']:.4f}; "
+        f"{prof['kernel_launches']} kernel launches")
+    for t in prof["top"]:
+        log(f"    {t['device_ms']:9.3f} ms  x{t['count']:6d}  {t['name']}")
+    del state, params, opt, tr, step_fn
+    torch.cuda.empty_cache()
+    grads = full_step_grads(torch, cfg, f"{cfg.name} {DENSE_TRAIN_LAYERS} "
+                                        f"layers bf16")
+    return {"config": cfg.name, "layers": DENSE_TRAIN_LAYERS,
+            "params": n_par, "losses": losses,
+            "step_s": step_times,
+            "step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+            "max_memory_allocated": peak, "launches": launches,
+            "launches_per_step": per_step, "profile": prof,
+            "grads": grads}
+
+
+def dense_check_train(torch) -> dict:
+    """Phase 11 (4): qwen1.5-32b and mistral-large-123b at full width and
+    DENSE_TRAIN_CHECK_LAYERS layers, bf16, each with its own optimizer
+    (AdamW, Adafactor), DENSE_TRAIN_CHECK_STEPS steps of `Trainer` at
+    phase 9's batch shape, the training kernels' launch counts set to 0
+    just before and read just after: finite losses, `flash_attention_bwd`
+    and `rmsnorm_bwd` launched; then one microbatch's gradient in every
+    leaf finite and nonzero."""
+    import dataclasses
+
+    from repro_torch.configs import mistral_large_123b, qwen1_5_32b
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    out = {}
+    for base in (qwen1_5_32b.CONFIG, mistral_large_123b.CONFIG):
+        cfg = dataclasses.replace(base, n_layers=DENSE_TRAIN_CHECK_LAYERS)
+        wrappers = train_wrappers()
+        for fn in wrappers.values():
+            fn.launches = 0
+        tr = Trainer(cfg, TrainConfig(steps=DENSE_TRAIN_CHECK_STEPS,
+                                      batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                      microbatch=TRAIN_MICRO, log_every=1),
+                     device="cuda")
+        state = tr.run()
+        launches = {n: fn.launches for n, fn in wrappers.items()}
+        losses = [m["loss"] for m in tr.metrics_log]
+        log(f"  {cfg.name}, {cfg.n_layers} layers, bf16, {cfg.optimizer}: "
+            f"losses {losses}; step s {tr.step_times}; launches {launches}")
+        if not all(math.isfinite(x) for x in losses) or not all(
+                launches[n] for n in ("flash_attention_bwd", "rmsnorm_bwd",
+                                      "flash_attention_lse", "rmsnorm")):
+            raise AssertionError(f"{cfg.name}: losses {losses}, launches "
+                                 f"{launches}")
+        del state, tr
+        torch.cuda.empty_cache()
+        out[cfg.name] = {"layers": cfg.n_layers, "optimizer": cfg.optimizer,
+                         "losses": losses, "launches": launches,
+                         "grads": full_step_grads(
+                             torch, cfg, f"{cfg.name} {cfg.n_layers} "
+                                         f"layers bf16")}
+    return out
+
+
+def dense_train_child(torch) -> int:
+    """Phase 11 in a child process, with PyTorch's deterministic
+    algorithms on (`trainer.deterministic`): the dense configs' gradient
+    check, mistral-large-123b's golden run (with its rerun and restart),
+    qwen2.5-32b's timed run, and the other two configs' checks; one JSON
+    line last, with the launches by run."""
+    from repro_torch.train.trainer import deterministic
+    deterministic()
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 is float32
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+
+    def part(msg):
+        log(f"  {msg}  [child at {time.perf_counter() - t0:.1f} s]")
+    part("(1) gradients of one full-width block")
+    grads = dense_grad_check(torch)
+    part("(2) mistral-large-123b's golden run, rerun and restart")
+    gold = dense_golden_train(torch)
+    part(f"(3) qwen2.5-32b, {DENSE_TRAIN_LAYERS} layers, bfloat16, timed")
+    timed = dense_timed_train(torch)
+    part(f"(4) qwen1.5-32b and mistral-large-123b, "
+         f"{DENSE_TRAIN_CHECK_LAYERS} layers, bfloat16")
+    checks = dense_check_train(torch)
+    part("done")
+    launches = {f"{timed['config']} bfloat16": timed["launches"],
+                "mistral-large-123b float32 golden": gold["launches"]}
+    launches.update({f"{name} bfloat16": rec["launches"]
+                     for name, rec in checks.items()})
+    print(json.dumps({"grad_check": grads, "golden": gold, "timed": timed,
+                      "checks": checks, "launches": launches}))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -2769,6 +3180,8 @@ def main(argv=None) -> int:
     ap.add_argument("--train-child", action="store_true",
                     help=argparse.SUPPRESS)
     ap.add_argument("--dense-child", action="store_true",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--dense-train-child", action="store_true",
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
@@ -2802,6 +3215,8 @@ def main(argv=None) -> int:
         return train_child(torch)
     if args.dense_child:
         return dense_child(torch)
+    if args.dense_train_child:
+        return dense_train_child(torch)
     t_start = time.perf_counter()
 
     smi = nvidia_smi()
@@ -2903,8 +3318,9 @@ def main(argv=None) -> int:
     serving, one_op = measure_serving(torch, C, serve_ops, errs, lens)
     dense = measure_dense(torch, C, serve_ops, errs)
     training = measure_training(torch, C, FA, RN, TR, errs)
+    dense_training = measure_dense_training(torch, C, FA, RN, errs)
     kernels = measure(torch, C, SF, FT, errs, launches) + serving \
-        + dense + training
+        + dense + training + dense_training
     check_one_op(one_op)
 
     phase(t_start, "[6] where the time goes: one fused n=64 srsp "
@@ -2946,6 +3362,15 @@ def main(argv=None) -> int:
             base = rec["name"].split("[")[0]
             rec["launches"] = sum(dense_run["launches"][c][base]
                                   for c in dense_launched_by(rec["name"]))
+
+    phase(t_start, "[11] dense training: qwen2.5-32b (timed), qwen1.5-32b and "
+                   "mistral-large-123b (golden), deterministic algorithms "
+                   "on, in a child process")
+    dense_train = run_child("--dense-train-child", "dense train",
+                            timeout=600)
+    for rec in kernels:
+        if rec["name"] in DENSE_TRAIN_KERNELS:
+            dense_train_launches(rec, dense_train["launches"])
     if not all(rec["launches"] for rec in kernels):
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{[r['name'] for r in kernels if not r['launches']]}")
@@ -2972,6 +3397,7 @@ def main(argv=None) -> int:
                        "kernels": kernels, "profile": prof,
                        "serve": serve, "delta_sync": sync_recs,
                        "train": train, "dense": dense_run,
+                       "dense_train": dense_train,
                        "total_s": total_s,
                        "phases": phase_times(t_end),
                        "ptxas": reports}, f, indent=1)

@@ -7,8 +7,18 @@
 
 #define REPRO_EXPORT extern "C" __attribute__((visibility("default")))
 
+// A launch's own refusals, numbered apart from the CUDA runtime's codes
+#define REPRO_ERR_ALIGN 20001     // an operand is not 16-byte aligned
+#define REPRO_ERR_TMA_MAP 20002   // cuTensorMapEncodeTiled refused a map
+#define REPRO_ERR_NO_TMA 20003    // the driver has no cuTensorMapEncodeTiled
+
 REPRO_EXPORT const char* repro_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  switch (err) {
+    case REPRO_ERR_ALIGN: return "an operand is not 16-byte aligned";
+    case REPRO_ERR_TMA_MAP: return "a TMA tensor map was refused";
+    case REPRO_ERR_NO_TMA: return "no cuTensorMapEncodeTiled in the driver";
+    default: return cudaGetErrorString(static_cast<cudaError_t>(err));
+  }
 }
 
 static inline int repro_cdiv(long long a, int b) {

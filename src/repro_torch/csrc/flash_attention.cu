@@ -432,13 +432,15 @@ template <int D, bool LSE>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  float* lse, int B, int Hq, int Hkv, int S, float scale,
                  cudaStream_t s) {
+  const cudaError_t bound = bind_device_of(q);
+  if (bound != cudaSuccess) return static_cast<int>(bound);
   const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return cudaErrorNotSupported;
+  if (enc == nullptr) return REPRO_ERR_NO_TMA;
   CUtensorMap qm, km, vm;
   if (!encode_map(enc, &qm, q, B * Hq, S, D) ||
       !encode_map(enc, &km, k, B * Hkv, S, D) ||
       !encode_map(enc, &vm, v, B * Hkv, S, D)) {
-    return cudaErrorInvalidValue;
+    return REPRO_ERR_TMA_MAP;
   }
   constexpr int smem = fw_smem<D>();
   if (smem > 48 * 1024) {

@@ -223,6 +223,18 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
 
+// The encoder is a driver call: it refuses a map (CUDA_ERROR_INVALID_VALUE)
+// on a thread with no context current, as autograd's backward thread is
+// until something on it makes a CUDA runtime call that binds one.  This
+// binds the primary context of the device that holds `p` to the calling
+// thread (cudaSetDevice does, since CUDA 12).
+cudaError_t bind_device_of(const void* p) {
+  cudaPointerAttributes a;
+  const cudaError_t err = cudaPointerGetAttributes(&a, p);
+  if (err != cudaSuccess) return err;
+  return cudaSetDevice(a.device);
+}
+
 EncodeTiled encode_tiled() {
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {

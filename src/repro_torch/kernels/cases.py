@@ -641,9 +641,11 @@ def check_router(fn, plain, k: int, device) -> tuple:
 # --------------------------------------------------------------------------
 # the training kernels: the forward's training instance
 # (`flash_attention_lse`) and the three backward kernels, on the
-# training path's shapes (granite-moe-1b-a400m, microbatch 4 x 256
-# tokens) and the edge cases: S in {1, 17, 64, 256, 300} (300: a ragged
-# last tile), GQA groups 1, 2 and 8, D 16 and 64, float32 and bfloat16;
+# training path's shapes (granite-moe-1b-a400m and the dense configs,
+# microbatch 4 x 256 tokens) and the edge cases: S in {1, 17, 64, 256,
+# 300} (300: a ragged last tile), GQA groups 1, 2, 4, 5, 8, 12 and 16
+# (the bf16 backward splits a kv head over a cluster from group 4 on), D
+# 16, 64 and 128, float32 and bfloat16;
 # for the bf16 D=64 wgmma kernel also peaked scores (q, k x 4: where
 # rounding P and dS to bf16 operands matters most), B=2 at S=300 and
 # group 8 at S=256 (ragged tiles, a group over several heads and tiles);
@@ -656,6 +658,10 @@ def check_router(fn, plain, k: int, device) -> tuple:
 # tests/test_torch_cuda.py.
 # --------------------------------------------------------------------------
 
+# the dense configs' attention heads (name, Hq, Hkv): qwen2.5-32b (GQA
+# group 5), qwen1.5-32b (1), mistral-large-123b (12), all at D=128
+DENSE_TRAIN = (("qwen2.5-32b 40/8", 40, 8), ("qwen1.5-32b 40/40", 40, 40),
+               ("mistral-large-123b 96/8", 96, 8))
 TRAIN_ATTN_CASES = (
     [(f"S={s} {dt}", dict(b=1, hq=16, hkv=8, s=s, d=64), dt)
      for s in (1, 17, 64, 256, 300) for dt in ("bfloat16", "float32")]
@@ -672,7 +678,29 @@ TRAIN_ATTN_CASES = (
     + [(f"B=2 S=300 {dt}", dict(b=2, hq=16, hkv=8, s=300, d=64), dt)
        for dt in ("bfloat16", "float32")]
     + [(f"GQA group 8 S=256 {dt}", dict(b=2, hq=16, hkv=2, s=256, d=64),
-        dt) for dt in ("bfloat16", "float32")])
+        dt) for dt in ("bfloat16", "float32")]
+    # large GQA groups at D=64, on a grid that leaves the card idle and
+    # on one that nearly fills it
+    + [(f"GQA group {g} B=2 S=300 bfloat16", dict(b=2, hq=2 * g, hkv=2,
+                                                    s=300, d=64), "bfloat16")
+       for g in (4, 5, 12, 16)]
+    + [("GQA group 4 B=4 S=512 bfloat16",
+        dict(b=4, hq=16, hkv=4, s=512, d=64), "bfloat16")]
+    # the dense configs, D=128: their training shapes (a microbatch of 4
+    # sequences of 256), ragged S, GQA groups 1-16, a long S,
+    # peaked scores
+    + [(f"D=128 {name} B=4 S=256 {dt} (training)",
+        dict(b=4, hq=hq, hkv=hkv, s=256, d=128), dt)
+       for name, hq, hkv in DENSE_TRAIN for dt in ("bfloat16", "float32")]
+    + [(f"D=128 S={s} {dt}", dict(b=1, hq=10, hkv=2, s=s, d=128), dt)
+       for s in (1, 17, 300) for dt in ("bfloat16", "float32")]
+    + [(f"D=128 GQA group {g} B=2 S=130 {dt}", dict(b=2, hq=2 * g, hkv=2,
+                                                     s=130, d=128), dt)
+       for g in (1, 2, 4, 5, 8, 12, 16) for dt in ("bfloat16", "float32")]
+    + [("D=128 peaked scores group 12 S=256 bfloat16",
+        dict(b=1, hq=12, hkv=1, s=256, d=128, peak=4.0), "bfloat16")]
+    + [("D=128 GQA group 4 B=4 S=512 bfloat16",
+        dict(b=4, hq=8, hkv=2, s=512, d=128), "bfloat16")])
 RMS_BWD_CASES = (
     [(f"{shape} {dt}", dict(shape=shape), dt)
      for shape in ((4, 256, 1024), (1, 1024), (5, 37), (3, 1031),
@@ -681,7 +709,11 @@ RMS_BWD_CASES = (
     + [(f"{shape} {dt}", dict(shape=shape), dt)
        for shape, dt in (((1000, 1024), "bfloat16"), ((300, 2048), "bfloat16"),
                          ((300, 2056), "bfloat16"), ((300, 512), "bfloat16"),
-                         ((300, 256), "float32"), ((300, 512), "float32"))])
+                         ((300, 256), "float32"), ((300, 512), "float32"))]
+    # the dense configs' training microbatch at their widths
+    + [(f"{shape} {dt} (dense training)", dict(shape=shape), dt)
+       for shape in ((4, 256, 5120), (4, 256, 12288))
+       for dt in ("bfloat16", "float32")])
 ROUTER_BWD_CASES = [
     ("T=1024 E=32 k=8 (training)", dict(t=1024, e=32), 8),
     ("T=17 E=32 k=1", dict(t=17, e=32), 1),

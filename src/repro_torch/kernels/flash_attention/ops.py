@@ -11,12 +11,13 @@ kernel's design and its bound.
 Training: `flash_attention` goes through the `torch.autograd.Function`
 `_FlashAttention` when grad mode is on and an input requires grad
 (otherwise it launches the serving instance as before); on the card it
-takes D in `BWD_HEAD_DIMS` and raises `NotImplementedError` at D = 128,
-whose backward is the next slice.  Its forward is
+takes D in `BWD_HEAD_DIMS` (16, 64 and 128) and raises
+`NotImplementedError` at any other D before any launch.  Its forward is
 `flash_attention_lse`, the kernel's training instance, which also writes
 each row's log-sum-exp (plain version `flash_attention_lse_ref`); its
 backward is `flash_attention_bwd`, which launches the hand-written
-kernel `csrc/flash_attention_bwd.cu` on CUDA tensors and takes the plain
+kernel `csrc/flash_attention_bwd.cu` on CUDA tensors (bf16 at D 64 and
+128 on `wgmma`; float32 and D = 16 on CUDA cores) and takes the plain
 version `flash_attention_bwd_ref` (the explicit vjp) on CPU tensors.  The
 Pallas kernel is forward only; the JAX package differentiates its jnp
 form `blockwise_attention`.
@@ -31,9 +32,9 @@ from repro_torch.kernels import common
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 64, 128)   # the template instances of csrc/flash_attention.cu
-# the head dims of csrc/flash_attention_bwd.cu; training at D = 128 waits
-# for its slice (ROADMAP Queue B 1)
-BWD_HEAD_DIMS = (16, 64)
+# the head dims of csrc/flash_attention_bwd.cu (D = 160 comes with
+# stablelm-12b, ROADMAP Queue A 16b)
+BWD_HEAD_DIMS = (16, 64, 128)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -182,8 +183,24 @@ def _no_bwd_on_card(d: int) -> None:
     if d not in BWD_HEAD_DIMS:
         raise NotImplementedError(
             f"flash_attention_bwd on the card takes D in {BWD_HEAD_DIMS}, "
-            f"got D={d}: training at D=128 is the next slice (ROADMAP "
-            f"Queue B 1)")
+            f"got D={d}: D=160 comes with stablelm-12b (ROADMAP Queue A "
+            f"16b, Queue B 1)")
+
+
+def bwd_attributes(d: int) -> dict:
+    """The bf16 `wgmma` backward kernel's registers a thread and local
+    memory a thread (spills, bytes) at head dim `d` (64 or 128), as the
+    loaded module reports them (`cudaFuncGetAttributes`).  Needs the
+    card."""
+    fn = common.library("flash_attention_bwd").flash_attention_bwd_attributes
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    err = fn(d, ctypes.byref(regs), ctypes.byref(local))
+    if err:
+        raise RuntimeError(f"flash_attention_bwd_attributes: error {err}")
+    return {"registers": regs.value, "local_bytes": local.value}
 
 
 def _launch_bwd(q, k, v, o, do, lse, scale):

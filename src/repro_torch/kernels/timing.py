@@ -21,6 +21,10 @@ co-schedule, and each one's replica instance (`*_many`) at R = 2 and
 `topk_router` at granite-moe-1b-a400m's decode and prefill shapes, and
 `train_calls` the training path's backward kernels `flash_attention_bwd`
 and `rmsnorm_bwd` at chip_smoke.py phase 5's training shapes,
+`dense_train_calls` the dense configs'
+training instances (the backward at D=128 for each config in bf16 and
+at qwen2.5-32b's heads in float32, with their forwards, and
+`rmsnorm_bwd` at d = 5120 and 12288),
 `decode_calls` `flash_decode` at granite's heads (its serving decode
 shape, or any kv_len and cache length), and
 `dense_calls` the dense configs' instances (attention and decode at
@@ -302,38 +306,124 @@ TRAIN_ATTN = dict(b=4, hq=16, hkv=8, s=256, d=64)
 TRAIN_ROWS, TRAIN_D = 1024, 1024
 
 
-def train_calls(C, FA, RN, device) -> list:
-    """The training path's backward kernels at TRAIN_ATTN and [TRAIN_ROWS,
-    TRAIN_D], bf16: `flash_attention_bwd` (o and lse from the tree's own
-    training forward) and `rmsnorm_bwd`: [{name, shape, fn, plain, bytes,
-    ops}] (C, FA, RN: the `cases`, `flash_attention.ops` and
-    `rmsnorm.ops` modules)."""
+def attn_bwd_call(C, FA, kw: dict, dtype: str, device, seed=9,
+                  note="") -> dict:
+    """`flash_attention_bwd` at shape `kw` in `dtype` (o and lse from the
+    tree's own training forward), with its forward's call beside it:
+    {name, shape, fn, plain, library, bytes, ops, fwd, fwd_plain,
+    fwd_library, fwd_bytes, fwd_ops, kw}.  `library` is the backward through
+    scaled_dot_product_attention (forward and backward, less the
+    forward: autograd runs the backward on its forward's stream), used
+    nowhere in the port; `ops` are the flops (the backward's 2.5 times the
+    forward's causal matmul flops); the bytes each input is read once and
+    each output written once."""
     import numpy as np
-    b, hq, hkv, s, d = (TRAIN_ATTN[k] for k in ("b", "hq", "hkv", "s", "d"))
-    q, k, v = (C.to_dtype(x, "bfloat16").to(device)
-               for x in C.attn_inputs(9, **TRAIN_ATTN))
-    rng = np.random.default_rng(9)
+    import torch
+    import torch.nn.functional as F
+    b, hq, hkv, s, d = (kw[k] for k in ("b", "hq", "hkv", "s", "d"))
+    q, k, v = (C.to_dtype(x, dtype).to(device)
+               for x in C.attn_inputs(seed, **kw))
+    rng = np.random.default_rng(seed)
     do = C.to_dtype(rng.standard_normal(tuple(q.shape)).astype(np.float32),
-                    "bfloat16").to(device)
+                    dtype).to(device)
     o, lse = FA.flash_attention_lse(q, k, v)
-    x, w = C.rms_inputs(9, (TRAIN_ROWS, TRAIN_D))
+    size = q.element_size()
+
+    def sdpa(backward):
+        ts = [t.detach().requires_grad_(backward) for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*ts, is_causal=True,
+                                             enable_gqa=True)
+        if backward:
+            torch.autograd.grad(out, ts, do)
+
+    fwd_ops = 4 * d * b * hq * s * (s + 1) / 2
+    return dict(
+        name="flash_attention_bwd",
+        shape=f"q [{b},{hq},{s},{d}] k/v [{b},{hkv},{s},{d}] "
+              f"{'bf16' if dtype == 'bfloat16' else dtype}{note}",
+        fn=lambda: FA.flash_attention_bwd(q, k, v, o, do, lse),
+        plain=lambda: FA.flash_attention_bwd_ref(q, k, v, o, do, lse),
+        library=lambda: device_ms(lambda: sdpa(True))
+        - device_ms(lambda: sdpa(False)),
+        # q, k, v, o, dO and lse in; dQ, dK, dV out
+        bytes=size * d * s * b * (4 * hq + 4 * hkv) + 4 * b * hq * s,
+        ops=2.5 * fwd_ops,
+        fwd=lambda: FA.flash_attention_lse(q, k, v),
+        fwd_plain=lambda: FA.flash_attention_lse_ref(q, k, v),
+        fwd_library=lambda: device_ms(lambda: sdpa(False)),
+        # q, k, v in; o and lse out
+        fwd_bytes=size * d * s * b * (2 * hq + 2 * hkv) + 4 * b * hq * s,
+        fwd_ops=fwd_ops, kw=kw)
+
+
+def rms_bwd_call(C, RN, rows: int, dm: int, device, seed=9,
+                 note="") -> dict:
+    """`rmsnorm_bwd` on bf16 x/dy [rows, dm], float32 w: {name, shape, fn,
+    plain, library, bytes, ops}, `library` the backward of F.rms_norm
+    (bf16 weight: it takes the weight in x's type), timed as forward and
+    backward less the forward."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    x, w = C.rms_inputs(seed, (rows, dm))
     x = C.to_dtype(x, "bfloat16").to(device)
     w = C.to_dtype(w, "float32").to(device)
+    rng = np.random.default_rng(seed)
     dy = C.to_dtype(rng.standard_normal(tuple(x.shape)).astype(np.float32),
                     "bfloat16").to(device)
-    return [
-        dict(name="flash_attention_bwd",
-             shape=f"q [{b},{hq},{s},{d}] k/v [{b},{hkv},{s},{d}] bf16",
-             fn=lambda: FA.flash_attention_bwd(q, k, v, o, do, lse),
-             plain=lambda: FA.flash_attention_bwd_ref(q, k, v, o, do, lse),
-             # q, k, v, o, dO and lse in; dQ, dK, dV out
-             bytes=2 * d * s * b * (4 * hq + 4 * hkv) + 4 * b * hq * s,
-             ops=2.5 * 4 * d * b * hq * s * (s + 1) / 2),
-        dict(name="rmsnorm_bwd", shape=f"x/dy [{TRAIN_ROWS},{TRAIN_D}] bf16",
-             fn=lambda: RN.rmsnorm_bwd(x, w, dy),
-             plain=lambda: RN.rmsnorm_bwd_ref(x, w, dy),
-             bytes=3 * 2 * TRAIN_ROWS * TRAIN_D + 8 * TRAIN_D,
-             ops=10 * TRAIN_ROWS * TRAIN_D)]
+    w_bf = w.to(torch.bfloat16)
+
+    def rms(backward):
+        xr, wr = (t.detach().requires_grad_(backward) for t in (x, w_bf))
+        out = F.rms_norm(xr, (dm,), wr, 1e-6)
+        if backward:
+            torch.autograd.grad(out, (xr, wr), dy)
+
+    return dict(name="rmsnorm_bwd", shape=f"x/dy [{rows},{dm}] bf16{note}",
+                fn=lambda: RN.rmsnorm_bwd(x, w, dy),
+                plain=lambda: RN.rmsnorm_bwd_ref(x, w, dy),
+                library=lambda: device_ms(lambda: rms(True))
+                - device_ms(lambda: rms(False)),
+                bytes=3 * 2 * rows * dm + 8 * dm, ops=10 * rows * dm)
+
+
+def train_calls(C, FA, RN, device) -> list:
+    """The training path's backward kernels at TRAIN_ATTN and [TRAIN_ROWS,
+    TRAIN_D], bf16: `flash_attention_bwd` and `rmsnorm_bwd`
+    (`attn_bwd_call`, `rms_bwd_call`; C, FA, RN: the `cases`,
+    `flash_attention.ops` and `rmsnorm.ops` modules)."""
+    return [attn_bwd_call(C, FA, TRAIN_ATTN, "bfloat16", device),
+            rms_bwd_call(C, RN, TRAIN_ROWS, TRAIN_D, device)]
+
+
+# the dense configs' training microbatch (chip_smoke.py phases 5 and 11:
+# 4 sequences of 256 tokens), per config (name, Hq, Hkv) at D=128, and
+# rmsnorm's rows at their widths
+DENSE_TRAIN_ATTN = dict(b=4, s=256, d=128)
+DENSE_TRAIN_HEADS = (("qwen2.5-32b", 40, 8), ("qwen1.5-32b", 40, 40),
+                     ("mistral-large-123b", 96, 8))
+
+
+def dense_train_calls(C, FA, RN, device) -> list:
+    """The dense configs' training instances: `flash_attention_bwd` at
+    D=128 in bf16 for each config of DENSE_TRAIN_HEADS and in float32 at
+    qwen2.5-32b's heads, and `rmsnorm_bwd` at DENSE_RMS_D over a
+    microbatch's TRAIN_ROWS rows (`attn_bwd_call`, `rms_bwd_call`; each
+    attention call carries its forward, `flash_attention_lse`)."""
+    out = []
+    for seed, (cfg, hq, hkv) in enumerate(DENSE_TRAIN_HEADS):
+        out.append(dict(attn_bwd_call(C, FA, dict(DENSE_TRAIN_ATTN, hq=hq,
+                                                  hkv=hkv), "bfloat16",
+                                      device, seed=60 + seed,
+                                      note=f" ({cfg})"), config=cfg))
+    cfg, hq, hkv = DENSE_TRAIN_HEADS[0]
+    out.append(dict(attn_bwd_call(C, FA, dict(DENSE_TRAIN_ATTN, hq=hq,
+                                              hkv=hkv), "float32", device,
+                                  seed=63, note=f" ({cfg})"), config=cfg))
+    for seed, dm in enumerate(DENSE_RMS_D):
+        out.append(rms_bwd_call(C, RN, TRAIN_ROWS, dm, device,
+                                seed=70 + seed))
+    return out
 
 
 # the dense configs' serving shapes (chip_smoke.py phases 5 and 10),
@@ -516,9 +606,12 @@ def time_trees(trees: list, rounds: int, kernels=None) -> list:
             calls[key] = {(c["name"], c["shape"]): dict(c, n=n)
                           for n in SIM_NS
                           for c in sim_calls(C, SF, FT, n, dev)}
-            # a tree before the D=128 instances has no dense calls
+            # a tree before the D=128 instances has no dense calls, one
+            # before the D=128 backward none of its training ones
             dense = dense_calls(C, FA, FD, RN, dev) \
                 if 128 in getattr(FA, "HEAD_DIMS", ()) else []
+            if 128 in getattr(FA, "BWD_HEAD_DIMS", ()):
+                dense += dense_train_calls(C, FA, RN, dev)
             calls[key].update({(c["name"], c["shape"]): dict(c, n=None)
                                for c in serve_calls(C, RN, TR, dev)
                                + train_calls(C, FA, RN, dev)

@@ -1,12 +1,18 @@
 """Training driver (`repro.launch.train`).
 
-On the card (granite-moe-1b-a400m, the architecture the port has):
+On the card (granite-moe-1b-a400m by default; `--arch` also takes the
+dense configs qwen2.5-32b, qwen1.5-32b and mistral-large-123b, each with
+its config's optimizer; `--layers` cuts the depth, which one card needs
+for those: it holds about 4 of qwen2.5-32b's 64 layers in bf16 with
+AdamW; the reference's `launch.train` has no such option):
   PYTHONPATH=src python3 -m repro_torch.launch.train --steps 20 \
       --batch 8 --seq 256 --microbatch 4
+  PYTHONPATH=src python3 -m repro_torch.launch.train --arch qwen2.5-32b \
+      --layers 4 --steps 5 --batch 8 --seq 256 --microbatch 4
 
 On the CPU, at the reduced same-family config:
   PYTHONPATH=src python3 -m repro_torch.launch.train --smoke --steps 5 \
-      --device cpu
+      --device cpu [--arch qwen2.5-32b]
 
 Prints one JSON line per logged step, then the first and last loss and
 the restart count.  Only `--mesh none`: sharded training waits for a
@@ -15,6 +21,7 @@ four-card cell (ROADMAP Queue A 15).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 
 from repro_torch.kernels import common
@@ -32,6 +39,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--microbatch", type=int, default=None)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config's depth to this many layers")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--mesh", default="none",
                     choices=["none", "debug", "single", "multi"])
@@ -50,6 +59,8 @@ def main(argv=None) -> int:
     if device.type == "cuda":
         deterministic()
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     tcfg = TrainConfig(steps=args.steps, batch=args.batch, seq=args.seq,
                        lr=args.lr, ckpt_dir=args.ckpt_dir,
                        microbatch=args.microbatch)

@@ -4,10 +4,15 @@ API: `make_optimizer` returns (init_fn, update_fn) on parameter trees,
 nested dicts of tensors.
 
 `update_fn(grads, state, params) -> (updates, state, gnorm)` clips the
-gradients to a global norm first; `apply_updates` adds the updates in
-each parameter's type.  Moments are float32 and the step counter is an
-int32 0-d tensor, all on the parameters' device, so a step makes no
-host round trip.  Leaves are visited in sorted-key order, as
+gradients to a global norm first (each leaf scaled as its update uses
+it, so no clipped copy of the tree is held); `apply_updates` adds the
+updates in each parameter's type.  Moments are float32 and the step
+counter is an int32 0-d tensor, all on the parameters' device, so a
+step makes no host round trip.  AdamW updates its moments in place: the
+state passed in is consumed, as a donated buffer is under `jax.jit`,
+and the new state holds the same tensors (two float32 copies of the
+model's moments would not fit the card beside the model at the dense
+configs' widths).  Leaves are visited in sorted-key order, as
 `jax.tree.leaves` orders a dict, which fixes the order of the global
 norm's sum.
 """
@@ -60,11 +65,12 @@ def global_norm(tree) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
-def clip_by_global_norm(tree, max_norm: float):
-    """(tree scaled so its global norm is at most max_norm, the norm)."""
+def clip_scale(tree, max_norm: float):
+    """(the factor that scales `tree` to a global norm of at most
+    max_norm, the norm); a leaf x clipped is x * scale.to(x.dtype)."""
     n = global_norm(tree)
     scale = torch.clamp(n.new_tensor(max_norm) / n.clamp(min=1e-9), max=1.0)
-    return tree_map(lambda x: x * scale.to(x.dtype), tree), n
+    return scale, n
 
 
 def _zeros(p: torch.Tensor, shape=None) -> torch.Tensor:
@@ -88,22 +94,22 @@ def make_adamw(lr_fn, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
 
     def update(grads, state, params):
         step = state["step"] + 1
-        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        scale, gnorm = clip_scale(grads, clip_norm)
         lr = lr_fn(step)
         bc1 = 1 - b1 ** step.float()
         bc2 = 1 - b2 ** step.float()
 
         def upd(g, m, v, p):
-            gf = g.float()
-            m2 = b1 * m + (1 - b1) * gf
-            v2 = b2 * v + (1 - b2) * gf * gf
-            u = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
+            gf = (g * scale.to(g.dtype)).float()
+            m.mul_(b1).add_((1 - b1) * gf)          # b1 * m + (1 - b1) * g
+            v.mul_(b2).add_((1 - b2) * gf * gf)
+            u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
             u = u + weight_decay * p.float()
-            return (-lr * u).to(p.dtype), m2, v2
+            return (-lr * u).to(p.dtype)
 
-        updates, m, v = _unzip(tree_map(upd, grads, state["m"], state["v"],
-                                        params), 3)
-        return updates, {"m": m, "v": v, "step": step}, gnorm
+        updates = tree_map(upd, grads, state["m"], state["v"], params)
+        return updates, {"m": state["m"], "v": state["v"],
+                         "step": step}, gnorm
 
     return init, update
 
@@ -126,12 +132,12 @@ def make_adafactor(lr_fn, eps=1e-30, clip_threshold=1.0, decay=0.8,
 
     def update(grads, state, params):
         step = state["step"] + 1
-        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        scale, gnorm = clip_scale(grads, clip_norm)
         lr = lr_fn(step)
         beta = 1.0 - step.float() ** -decay
 
         def upd(g, p, f):
-            gf = g.float()
+            gf = (g * scale.to(g.dtype)).float()
             g2 = gf * gf + eps
             if p.dim() >= 2:
                 vr = beta * f["vr"] + (1 - beta) * g2.mean(-1)

@@ -3,9 +3,10 @@ gradient accumulation, optimizer.
 
 Microbatching splits [GB, ...] into n_micro microbatches of GB / n_micro
 rows and runs the forward and backward of each in turn, adding each
-one's gradients in float32 as g / n_micro in microbatch order (what
-bounds activation memory; remat happens inside the model's layer loop).
-The gradients are cast to each parameter's type before the update.  A
+one's gradients in float32 as g / n_micro in microbatch order, into one
+float32 tree (what bounds activation memory; remat happens inside the
+model's layer loop).  The gradients are cast to each parameter's type
+before the update, and the float32 tree is dropped before it.  A
 step is eager PyTorch: every gradient comes from `torch.autograd.grad`
 on a fresh graph, and nothing is left on the parameters.
 """
@@ -58,11 +59,12 @@ def make_train_step(model: Model, opt_init, opt_update,
             for mb in _split_micro(batch, n_micro):
                 (loss, _), grads = value_and_grad(model.loss, params, mb)
                 div = loss.new_tensor(float(n_micro))
-                g_acc = tree_map(lambda a, g: a + g.float() / div, g_acc,
-                                 grads)
+                tree_map(lambda a, g: a.add_(g.float() / div), g_acc, grads)
+                del grads
                 loss_acc = (loss.new_zeros(()) if loss_acc is None
                             else loss_acc) + loss / div
             grads, metrics = g_acc, {"loss": loss_acc}
+            del g_acc
         else:
             (_, metrics), grads = value_and_grad(model.loss, params, batch)
         grads = tree_map(lambda g, p: g.to(p.dtype), grads, params)

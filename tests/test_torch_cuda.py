@@ -1086,16 +1086,134 @@ def test_flash_attention_d128_raises_on_a_misaligned_tensor(cuda):
 
 @pytest.mark.cuda
 def test_training_at_d128_on_card_names_the_next_slice(cuda):
-    """The backward kernel has no D=128 instance yet: attention with grad
-    on a CUDA tensor at D=128 raises NotImplementedError naming the
-    training slice, before any forward launch (no fallback)."""
+    """Attention with grad on a CUDA tensor at D=128 runs the training
+    instance and the backward kernel (one launch each, in bf16 and in
+    float32), its gradients within BWD_TOL of torch.autograd through the
+    plain version; at D=160, which the backward kernel does not take,
+    it raises NotImplementedError naming the slice that adds it (Queue A
+    16b), before any forward launch (no fallback)."""
+    for dt in ("bfloat16", "float32"):
+        q, k, v = (C.to_dtype(x, dt).to(cuda)
+                   for x in C.attn_inputs(2, 1, 10, 2, 64, 128))
+        do = C.to_dtype(np.random.default_rng(3).standard_normal(
+            tuple(q.shape)).astype(np.float32), dt).to(cuda)
+        before = (FA.flash_attention_lse.launches,
+                  FA.flash_attention_bwd.launches)
+        ins = [x.clone().requires_grad_() for x in (q, k, v)]
+        got = torch.autograd.grad(FA.flash_attention(*ins), ins, do)
+        assert (FA.flash_attention_lse.launches - before[0],
+                FA.flash_attention_bwd.launches - before[1]) == (1, 1)
+        ins = [x.clone().requires_grad_() for x in (q, k, v)]
+        want = torch.autograd.grad(FA.flash_attention_ref(*ins), ins, do)
+        for g, w in zip(got, want):
+            assert C.within(g, w, dt) <= C.BWD_TOL[dt], dt
     q, k, v = (C.to_dtype(x, "bfloat16").to(cuda).requires_grad_()
-               for x in C.attn_inputs(2, 1, 10, 2, 64, 128))
-    before = (FA.flash_attention_lse.launches, FA.flash_attention.launches)
-    with pytest.raises(NotImplementedError, match="Queue B 1"):
+               for x in C.attn_inputs(2, 1, 10, 2, 64, 160))
+    before = (FA.flash_attention_lse.launches, FA.flash_attention.launches,
+              FA.flash_attention_bwd.launches)
+    with pytest.raises(NotImplementedError, match="Queue A 16b"):
         FA.flash_attention(q, k, v)
-    with pytest.raises(NotImplementedError, match="Queue B 1"):
+    with pytest.raises(NotImplementedError, match="Queue A 16b"):
         FA.flash_attention_bwd(q, k, v, q, q, torch.zeros(
             (1, 10, 64), device=cuda))
-    assert (FA.flash_attention_lse.launches,
-            FA.flash_attention.launches) == before
+    assert (FA.flash_attention_lse.launches, FA.flash_attention.launches,
+            FA.flash_attention_bwd.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_bwd_is_autograd_threads_first_cuda_call(cuda, d):
+    """In a fresh process, the bf16 backward is the first CUDA work on
+    autograd's backward thread (q [1, 10, 64, d]: small tensors, served
+    from the caching allocator's blocks without a runtime call): the
+    launch binds the device's context before it encodes its TMA maps,
+    twice over, its gradients within BWD_TOL of the plain version's."""
+    _in_child("_bwd_is_autograd_threads_first_cuda_call", d)
+
+
+def _bwd_is_autograd_threads_first_cuda_call(cuda, d):
+    q, k, v = (C.to_dtype(x, "bfloat16").to(cuda)
+               for x in C.attn_inputs(1, 1, 10, 2, 64, d))
+    do = torch.randn_like(q)
+    for _ in range(2):
+        ins = [x.clone().requires_grad_() for x in (q, k, v)]
+        got = torch.autograd.grad(FA.flash_attention(*ins), ins, do)
+        ins = [x.clone().requires_grad_() for x in (q, k, v)]
+        want = torch.autograd.grad(FA.flash_attention_ref(*ins), ins, do)
+        for g, w in zip(got, want):
+            assert C.within(g, w, "bfloat16") <= C.BWD_TOL["bfloat16"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,want", [("bfloat16", {"stats_kernel": 1,
+                                                   "wgmma_bwd_kernel": 1}),
+                                     ("float32", {"delta_kernel": 1,
+                                                  "dkdv_lanes_kernel": 1,
+                                                  "dq_lanes_kernel": 1})],
+                         ids=["bfloat16", "float32"])
+def test_flash_attention_bwd_d128_device_operations(cuda, dt, want):
+    """One backward call at qwen2.5-32b's training shape makes the device
+    operations its design gives: in bf16 the stats kernel and the wgmma
+    kernel (its dK/dV and dQ CTAs in one launch), in float32
+    Di and the two CUDA-core kernels of 4 lanes a row; no memset, no
+    copy.  Traced in a child process, as the dense instances' one-
+    operation traces are."""
+    _in_child("_flash_attention_bwd_d128_device_operations", dt, want)
+
+
+def _flash_attention_bwd_d128_device_operations(cuda, dt, want):
+    q, k, v = (C.to_dtype(x, dt).to(cuda)
+               for x in C.attn_inputs(4, 4, 40, 8, 256, 128))
+    do = torch.randn_like(q)
+    o, lse = FA.flash_attention_lse(q, k, v)
+    FA.flash_attention_bwd(q, k, v, o, do, lse)   # build and load first
+    ops = timing.device_ops(lambda: FA.flash_attention_bwd(q, k, v, o, do,
+                                                           lse))
+    if not ops:                                   # a tracer miss
+        time.sleep(0.5)
+        ops = timing.device_ops(lambda: FA.flash_attention_bwd(
+            q, k, v, o, do, lse), slack_s=0.05)
+    got = {name: sum(n for key, n in ops.items() if f"::{name}" in key)
+           for name in want}
+    assert got == want and sum(ops.values()) == sum(want.values()), ops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("group", [5, 12])
+def test_flash_attention_bwd_is_bitwise_on_reruns_at_large_groups(cuda, d,
+                                                                  group):
+    """At GQA groups 5 and 12 the bf16 backward walks a kv head's q heads
+    in one CTA, without atomics: three calls give the same bits, on a
+    grid that leaves the card idle (B=1 S=64), at a ragged S and at
+    B=4 S=256."""
+    for b, s in ((1, 64), (2, 300), (4, 256)):
+        q, k, v = (C.to_dtype(x, "bfloat16").to(cuda)
+                   for x in C.attn_inputs(5, b, 2 * group, 2, s, d))
+        o, lse = FA.flash_attention_lse(q, k, v)
+        do = torch.randn_like(q)
+        first = FA.flash_attention_bwd(q, k, v, o, do, lse)
+        for _ in range(2):
+            again = FA.flash_attention_bwd(q, k, v, o, do, lse)
+            assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_registers_and_refusals(cuda):
+    """Neither wgmma instance spills, and D=64 keeps the 168 registers it
+    had at D=64 alone; a bf16 operand off 16 bytes is refused before any
+    launch, with a message that names the cause."""
+    for d in (64, 128):
+        attrs = FA.bwd_attributes(d)
+        assert attrs["local_bytes"] == 0, (d, attrs)
+    assert FA.bwd_attributes(64)["registers"] == 168
+    q, k, v = (C.to_dtype(x, "bfloat16").to(cuda)
+               for x in C.attn_inputs(5, 1, 10, 2, 64, 128))
+    o, lse = FA.flash_attention_lse(q, k, v)
+    off = torch.empty(o.numel() + 1, dtype=o.dtype, device=cuda)[1:].view(
+        o.shape)
+    off.copy_(o)
+    before = FA.flash_attention_bwd.launches
+    with pytest.raises(RuntimeError, match="16-byte aligned"):
+        FA.flash_attention_bwd(q, k, v, o, off, lse)
+    assert FA.flash_attention_bwd.launches == before

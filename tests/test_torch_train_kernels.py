@@ -66,7 +66,13 @@ def test_rmsnorm_bwd_ref_is_the_jax_vjp(shape, dt):
 
 ATTN = [(2, 4, 2, 33, 16, "float32"), (1, 4, 4, 17, 64, "float32"),
         (1, 8, 1, 5, 16, "float32"), (1, 16, 8, 1, 64, "float32"),
-        (2, 4, 2, 33, 16, "bfloat16"), (1, 16, 8, 40, 64, "bfloat16")]
+        (2, 4, 2, 33, 16, "bfloat16"), (1, 16, 8, 40, 64, "bfloat16"),
+        # the dense configs' head dim, at GQA groups 1, 5 and 12 (in
+        # float32: in bf16 the reference's vjp rounds its D=128 products
+        # one to two bf16 ulps off the float32 vjp's rounding, so the bf16
+        # kernel is held to the plain version, `test_torch_cuda.py`)
+        (1, 4, 4, 17, 128, "float32"), (2, 10, 2, 33, 128, "float32"),
+        (1, 12, 1, 20, 128, "float32")]
 
 
 @pytest.mark.parametrize("block_k", [512, 16])
